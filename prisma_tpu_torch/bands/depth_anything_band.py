@@ -1,0 +1,89 @@
+"""depth_anything band driver: relative Depth-Anything on one device
+(counterpart of prisma_tpu/bands/depth_anything_band.py).
+
+Reference: `bands/depth_anything.py` — the relative model (DPT head, flip=True
+on write). The metric model (ZoeDepth head, --metric indoor/outdoor) is not
+ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from prisma_tpu_torch.bands import depth_base
+from prisma_tpu_torch.bands.base import BandIO, resolve
+from prisma_tpu_torch.models import depth_anything as da
+from prisma_tpu_torch.runtime.config import RuntimeConfig
+from prisma_tpu_torch.weights.store import load_depth_anything
+
+BAND = "depth_anything"
+
+
+def build_infer(runtime: RuntimeConfig, encoder: str = "vitl",
+                metric: str = "none", img_size=None):
+    """-> (model, infer, flip): the model on runtime's device in its compute
+    dtype, and infer(model, frames_u8) -> depth.
+
+    img_size: the lower-bound resize target (default 518), an int or a
+    one-element sequence; multiples of 14."""
+    _kind, model, _enc = load_depth_anything(runtime, encoder=encoder,
+                                             metric=metric)
+    dtype = runtime.resolve_dtype()
+    model = model.to(device=runtime.device, dtype=dtype)
+    target = 518 if img_size is None else \
+        int(img_size[0] if hasattr(img_size, "__len__") else img_size)
+    infer = functools.partial(da.infer, compute_dtype=dtype, target=target)
+    return model, infer, True
+
+
+def run(input_path: str, output: str = "", subpath: str = "",
+        encoder: str = "vitl", metric: str = "none", npy: bool = False,
+        ply: bool = False, img_size=None,
+        runtime: RuntimeConfig | None = None) -> BandIO:
+    """img_size: see build_infer."""
+    runtime = runtime or RuntimeConfig()
+    io = resolve(BAND, input_path, output=output, subpath=subpath,
+                 force_extension="png", runtime=runtime)
+    model, infer, flip = build_infer(runtime, encoder=encoder, metric=metric,
+                                     img_size=img_size)
+
+    if io.is_video():
+        need_depth = bool(io.subpath) or npy
+        step = depth_base.make_step(model, infer, flip, need_depth)
+        depth_base.run_video(io, step, flip=flip, npy=npy)
+    else:
+        @torch.inference_mode()
+        def infer_image(frames: np.ndarray) -> np.ndarray:
+            x = torch.from_numpy(frames).to(runtime.device)
+            return infer(model, x).cpu().numpy()
+
+        depth_base.run_image(io, infer_image, flip=flip, npy=npy, ply=ply)
+    return io
+
+
+def main(argv=None):
+    """Standalone band CLI (reference bands/depth_anything.py:254-292)."""
+    from prisma_tpu_torch.bands.cli import band_parser, run_guarded, \
+        runtime_from_args
+
+    parser = band_parser(BAND, npy_ply=True)
+    parser.add_argument("--encoder", type=str, default="vitl",
+                        choices=["vits", "vitb", "vitl"])
+    parser.add_argument("--metric", type=str, default="none",
+                        choices=["none", "indoor", "outdoor"],
+                        help="metric (ZoeDepth-head) model: not ported yet")
+    parser.add_argument("--img_size", type=int, nargs="+", default=None,
+                        help="inference budget: the relative resize target "
+                             "(default 518), a multiple of 14")
+    args = parser.parse_args(argv)
+    run_guarded(BAND, run, args.input, output=args.output,
+                subpath=args.subpath, encoder=args.encoder, metric=args.metric,
+                npy=args.npy, ply=args.ply, img_size=args.img_size,
+                runtime=runtime_from_args(args))
+
+
+if __name__ == "__main__":
+    main()
