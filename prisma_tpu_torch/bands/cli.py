@@ -47,13 +47,17 @@ def add_runtime_flags(parser: argparse.ArgumentParser) -> None:
                              "(0 disables resume)")
     parser.add_argument("--force", "-F", action="store_true",
                         help="recompute even if the output already exists")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="where the models run (default: the CUDA card; "
+                             "cpu runs the kernels' plain versions)")
 
 
 def runtime_from_args(args) -> RuntimeConfig:
     return RuntimeConfig(batch_size=args.batch, compute_dtype=args.dtype,
                          random_weights=args.random_weights,
                          segment_frames=args.segment_frames,
-                         overwrite=args.force)
+                         overwrite=args.force, device=args.device)
 
 
 def run_guarded(band: str, fn, *args, **kwargs):

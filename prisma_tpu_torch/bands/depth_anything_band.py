@@ -29,10 +29,11 @@ def build_infer(runtime: RuntimeConfig, encoder: str = "vitl",
 
     img_size: the lower-bound resize target (default 518), an int or a
     one-element sequence; multiples of 14."""
+    device = runtime.resolve_device()
     _kind, model, _enc = load_depth_anything(runtime, encoder=encoder,
                                              metric=metric)
     dtype = runtime.resolve_dtype()
-    model = model.to(device=runtime.device, dtype=dtype)
+    model = model.to(device=device, dtype=dtype)
     target = 518 if img_size is None else \
         int(img_size[0] if hasattr(img_size, "__len__") else img_size)
     infer = functools.partial(da.infer, compute_dtype=dtype, target=target)
@@ -45,6 +46,7 @@ def run(input_path: str, output: str = "", subpath: str = "",
         runtime: RuntimeConfig | None = None) -> BandIO:
     """img_size: see build_infer."""
     runtime = runtime or RuntimeConfig()
+    runtime.resolve_device()  # no card where one is asked for: raise first
     io = resolve(BAND, input_path, output=output, subpath=subpath,
                  force_extension="png", runtime=runtime)
     model, infer, flip = build_infer(runtime, encoder=encoder, metric=metric,

@@ -1,5 +1,6 @@
-"""Depth sidecar writers: range-encoded heatmap PNGs, binary PLY, per-frame CSV
-(counterpart of the depth writers of prisma_tpu/io/writers.py).
+"""Band sidecar writers: range-encoded depth heatmap PNGs, binary PLY,
+Middlebury .flo, 16-bit packed flow PNGs, per-frame CSV (counterpart of the
+depth and flow writers of prisma_tpu/io/writers.py).
 
 Output bytes follow the reference (`bands/common/io.py:138-211`,
 `bands/common/geom.py`). The heatmap math is the port's torch
@@ -54,6 +55,38 @@ def write_depth(path: str, depth: np.ndarray, normalize: bool = True,
             depth = 1.0 - depth
         max_val = (2 ** 16) - 1
         cv2.imwrite(path, (depth * max_val).astype("uint16"))
+
+
+def write_flo(path: str, flow: np.ndarray) -> None:
+    """Middlebury .flo: magic 202021.25 (f32), width/height (i32), row-major f32 data."""
+    flow = np.asarray(flow, dtype=np.float32)
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        np.array([202021.25], dtype=np.float32).tofile(f)
+        np.array([w], dtype=np.int32).tofile(f)
+        np.array([h], dtype=np.int32).tofile(f)
+        flow.tofile(f)
+
+
+def write_flow_png16(path: str, encoded_u16: np.ndarray) -> None:
+    """16-bit packed flow+validity PNG (`--subpath_mask` output).
+
+    The reference (bands/common/flow.py:96) passes `encode_flow`'s
+    (u, v, valid) uint16 array straight to cv2.imwrite, which treats the
+    channels as BGR: the file stores them reversed. The same call on the
+    same array gives the same bytes."""
+    import cv2
+    cv2.imwrite(path, np.ascontiguousarray(encoded_u16.astype(np.uint16)))
+
+
+def read_flo(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        magic = np.fromfile(f, np.float32, count=1)[0]
+        if abs(magic - 202021.25) >= 1e-3:
+            raise ValueError(f"bad .flo magic in {path}")
+        w = int(np.fromfile(f, np.int32, count=1)[0])
+        h = int(np.fromfile(f, np.int32, count=1)[0])
+        return np.fromfile(f, np.float32, count=h * w * 2).reshape(h, w, 2)
 
 
 def write_csv(path: str, values) -> None:

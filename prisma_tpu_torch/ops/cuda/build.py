@@ -4,12 +4,14 @@ Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own into
 `build/prisma_tpu_torch/lib<name>_<hash>.so` beside the package, at first use.
 The hash covers the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. No PyTorch headers are involved: a build takes
-seconds, not the minutes of `torch.utils.cpp_extension`.
+seconds, not the minutes of `torch.utils.cpp_extension`. `build_all` starts
+one nvcc per source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -36,26 +38,51 @@ def _nvcc() -> str:
                        "toolkit is needed to build the port's kernels")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless an up-to-date build exists; return the
-    path of the shared library. The compiler's output (register and shared
-    memory use per kernel, from -Xptxas -v) lands in <library>.log."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
+def sources() -> list[str]:
+    """The names of the kernel sources, csrc/<name>.cu."""
+    return sorted(os.path.basename(p)[:-3]
+                  for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path(name: str) -> str:
+    """Where the build of csrc/<name>.cu lands (its hash names source and flags)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
         digest.update(f.read())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(out):
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile csrc/<name>.cu for each name (default: every source) unless an
+    up-to-date build exists, one nvcc process per source, all started
+    together; return {name: library path}. The compiler's output (register
+    and shared memory use per kernel, from -Xptxas -v) lands in
+    <library>.log."""
+    names = sources() if names is None else list(names)
+    out = {name: library_path(name) for name in names}
+    todo = {name: path for name, path in out.items() if not os.path.exists(path)}
+    if not todo:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            continue
+        with open(path + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
@@ -63,5 +90,5 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(build(name))
+            _libs[name] = ctypes.CDLL(build_all([name])[name])
         return _libs[name]

@@ -184,12 +184,14 @@ def depth_heat(depth: torch.Tensor, flip: bool):
 
 
 def process_flow(flow: torch.Tensor):
-    """HSV-encode a flow field [H, W, 2] -> (rgb_u8 [H, W, 3], max_distance)."""
+    """HSV-encode a flow field [..., H, W, 2] -> (rgb_u8 [..., H, W, 3],
+    max_distance [...]). Each field is normalised by its own maximum
+    distance: over (H, W), per pair of a batch, as the JAX package vmaps it."""
     flow = flow.float()
     dist = torch.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
-    max_distance = dist.max()
-    dx = flow[..., 0] / max_distance
-    dy = flow[..., 1] / max_distance
+    max_distance = dist.amax(dim=(-2, -1))
+    dx = flow[..., 0] / max_distance[..., None, None]
+    dy = flow[..., 1] / max_distance[..., None, None]
     rad = torch.sqrt(dx * dx + dy * dy)
     ang = (torch.atan2(dy, dx) / math.pi + 1.0) * 0.5
     rgb = saturation(hue_to_rgb(ang), rad)
@@ -201,13 +203,14 @@ def encode_flow(flow: torch.Tensor, mask: torch.Tensor) -> np.ndarray:
     """Pack flow + validity mask into a 3-channel uint16 image (host numpy).
 
     Flow is biased to 2**15 and scaled by 2**8; pixels that over/underflow the
-    16-bit range are invalidated in the mask channel.
+    16-bit range are invalidated in the mask channel, and their values
+    saturate at 0 and 2**16 - 1, as the JAX package's uint16 cast does.
     """
     f = 2.0 ** 15 + flow.float() * (2.0 ** 8)
     valid = mask.bool()
     valid &= f.amax(dim=-1) < (2 ** 16 - 1)
     valid &= f.amin(dim=-1) > 0
-    packed = torch.cat([f.to(torch.int32),
+    packed = torch.cat([f.clamp(0, 2 ** 16 - 1).to(torch.int32),
                         valid[..., None].to(torch.int32) * (2 ** 16 - 1)], dim=-1)
     return packed.cpu().numpy().astype(np.uint16)
 

@@ -9,10 +9,6 @@ from dataclasses import dataclass, field
 import torch
 
 
-def _default_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 @dataclass
 class RuntimeConfig:
     """Execution knobs shared by all bands."""
@@ -30,12 +26,25 @@ class RuntimeConfig:
     x264_preset: str = "veryfast"
     # concurrent segment encoders per output stream; 0 = auto from host cores
     encode_workers: int = 0
-    # torch device the models run on: the card when there is one
-    device: str = field(default_factory=_default_device)
+    # torch device the models run on: the card; a caller who wants the CPU
+    # asks for it with device="cpu" (the CLIs' --device cpu)
+    device: str = "cuda"
 
     def resolve_dtype(self) -> torch.dtype:
         return {"float32": torch.float32,
                 "bfloat16": torch.bfloat16}[self.compute_dtype]
+
+    def resolve_device(self) -> torch.device:
+        """The device to run on; asking for the card where there is none
+        raises, before any work: the port never falls back to the CPU."""
+        device = torch.device(self.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {self.device!r} asked for, but torch sees no CUDA "
+                "card; pass device='cpu' (--device cpu) to run on the CPU")
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"device must be cuda or cpu, not {self.device!r}")
+        return device
 
     def resolve_encode_workers(self) -> int:
         if self.encode_workers > 0:

@@ -1,9 +1,10 @@
 """The JAX package's parameter trees as the port's state_dicts.
 
-`depth_anything_state_dict` inverts `prisma_tpu.weights.torch_convert.
-convert_depth_anything`: it takes the JAX parameters as numpy arrays and
-returns the reference checkpoint's keys and layouts, so that tests can run
-both packages on the same weights.
+`depth_anything_state_dict` and `gmflow_state_dict` invert
+`prisma_tpu.weights.torch_convert.convert_depth_anything` and
+`convert_gmflow`: they take the JAX parameters as numpy arrays and return the
+reference checkpoint's keys and layouts, so that tests can run both packages
+on the same weights.
 """
 
 from __future__ import annotations
@@ -91,4 +92,40 @@ def depth_anything_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
           for k, v in dino_vit_state_dict(params_np["vit"]).items()}
     sd.update({"depth_head." + k: v
                for k, v in dpt_head_state_dict(params_np["dpt"]).items()})
+    return sd
+
+
+def gmflow_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX GMFlow tree (numpy leaves) -> the reference checkpoint's
+    `backbone.*` / `transformer.*` / `feature_flow_attn.*` / `upsampler.*`
+    state_dict, f32 CPU tensors (instance norms carry no parameters)."""
+    sd: dict = {}
+    bb = params_np["backbone"]
+    _conv(sd, "backbone.conv1", bb["conv1"])
+    names = ("layer1.0", "layer1.1", "layer2.0", "layer2.1", "layer3.0",
+             "layer3.1")
+    for name, b in zip(names, bb["blocks"]):
+        k = f"backbone.{name}."
+        _conv(sd, k + "conv1", b["conv1"])
+        _conv(sd, k + "conv2", b["conv2"])
+        if "down" in b:
+            _conv(sd, k + "downsample.0", b["down"])
+    _conv(sd, "backbone.conv2", bb["conv2"])
+    for i, layer in enumerate(params_np["transformer"]["layers"]):
+        for part, name in (("self", "self_attn"), ("cross", "cross_attn_ffn")):
+            p = layer[part]
+            k = f"transformer.layers.{i}.{name}."
+            for proj in ("q", "k", "v"):
+                _linear(sd, k + proj + "_proj", p[proj])
+            _linear(sd, k + "merge", p["merge"])
+            _norm(sd, k + "norm1", p["norm1"])
+            if "mlp1" in p:
+                _linear(sd, k + "mlp.0", p["mlp1"])
+                _linear(sd, k + "mlp.2", p["mlp2"])
+                _norm(sd, k + "norm2", p["norm2"])
+    fa = params_np["flow_attn"]
+    _linear(sd, "feature_flow_attn.q_proj", fa["q"])
+    _linear(sd, "feature_flow_attn.k_proj", fa["k"])
+    _conv(sd, "upsampler.0", params_np["upsampler"]["conv1"])
+    _conv(sd, "upsampler.2", params_np["upsampler"]["conv2"])
     return sd

@@ -6,6 +6,7 @@ Weights resolve from a local models/ directory (PRISMA_TPU_MODELS or
 RuntimeConfig.models_dir):
 
   depth_anything_{vits,vitb,vitl}14.pt   torch state_dict (HF mixin layout)
+  gmflow_sintel-0c07dcb3.pth             torch checkpoint, state_dict under 'model'
 
 With runtime.random_weights=True models initialize randomly from a seeded
 torch.Generator instead: same shapes, no files needed.
@@ -18,6 +19,7 @@ import os
 import torch
 
 from prisma_tpu_torch.models import depth_anything as da
+from prisma_tpu_torch.models import gmflow as gm
 from prisma_tpu_torch.models import vit as pvit
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 
@@ -66,3 +68,23 @@ def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
     return ("relative",
             depth_anything_from_state_dict(_load_torch_state_dict(path), cfg),
             encoder)
+
+
+def load_gmflow(runtime: RuntimeConfig,
+                cfg: gm.GMFlowConfig | None = None) -> gm.GMFlow:
+    """GMFlow (1-scale), f32 on the CPU: random from the seed, or the
+    reference checkpoint `gmflow_sintel-0c07dcb3.pth` (reference
+    flow_gmflow.py:35,60-63; the state_dict sits under 'model') loaded with
+    strict=True."""
+    cfg = cfg or gm.GMFlowConfig()
+    if runtime.random_weights:
+        gen = torch.Generator().manual_seed(RANDOM_SEED)
+        return gm.init_params(gm.build(cfg), gen)
+    path = os.path.join(runtime.models_dir, "gmflow_sintel-0c07dcb3.pth")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"checkpoint {path} not found; place the gmflow checkpoint there "
+            "or set runtime.random_weights=True for smoke runs")
+    model = gm.build(cfg)
+    model.load_state_dict(_load_torch_state_dict(path), strict=True)
+    return model

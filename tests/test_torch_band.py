@@ -99,12 +99,12 @@ def test_band_cli_runs_an_image(tmp_path):
     cv2.imwrite(img, np.random.default_rng(0).integers(
         0, 255, (48, 64, 3)).astype(np.uint8))
     band.main(["-i", img, "--encoder", "vits", "--dtype", "float32",
-               "--random_weights", "--img_size", "126", "-p"])
+               "--random_weights", "--img_size", "126", "-p", "--device", "cpu"])
     assert cv2.imread(str(tmp_path / "depth_anything.png")).shape == (48, 64, 3)
     assert os.path.getsize(tmp_path / "depth_anything.ply") > 0
     with pytest.raises(NotImplementedError, match="metric"):
         band.main(["-i", img, "--random_weights", "--metric", "indoor",
-                   "--force"])
+                   "--force", "--device", "cpu"])
 
 
 def test_port_imports_without_jax_cv2_or_triton():

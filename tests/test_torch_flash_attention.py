@@ -1,9 +1,13 @@
-"""K1: the port's flash attention against the JAX package's Pallas kernel.
+"""K1, K2 and K3: the port's attention kernels against the JAX package's.
 
-On the CPU the wrapper takes its plain version, which is held against the
-Pallas kernel in interpret mode and against `_xla_attention` on the cases of
-tests/test_flash_attention.py. The card-only test holds the CUDA kernel
-against the plain version on the card; run it on a machine with a card with
+On the CPU each wrapper takes its plain version, which is held against the
+Pallas kernels in interpret mode and against the JAX package's dense and
+scan forms, on the cases of tests/test_flash_attention.py: K1 (no bias), K2
+(GMFlow's shifted-window region bias, from bands or ids) and K3 (streamed
+global attention with f32 values). CPU emulations of the kernels' tile
+arithmetic show that the card checks' bounds pass a right kernel and catch
+a plausible fault. The card-only tests hold the CUDA kernels against the
+plain versions on the card; run them on a machine with a card with
 `python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py`
 (this file imports JAX only inside the CPU tests).
 """
@@ -14,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from prisma_tpu_torch.ops.cuda.flash_attention import (bf16_bounds,
-                                                       flash_attention,
-                                                       flash_attention_ref)
+from prisma_tpu_torch.ops.cuda.flash_attention import (
+    bf16_bounds, flash_attention, flash_attention_ref,
+    flash_attention_streamed, flash_attention_streamed_ref, streamed_bounds)
 
 # f32 on both sides: the two differ only in summation order (2e-5, the bar
 # of tests/test_flash_attention.py)
@@ -156,3 +160,330 @@ def test_kernel_rejects_what_it_does_not_take():
     q = torch.zeros(2, 64, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)
+    q = torch.zeros(6, 64, 64, device="cuda", dtype=torch.bfloat16)
+    bands = torch.tensor([[51, 90]] * 4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiple of nwin"):
+        flash_attention(q, q, q, region_bands=bands, win_w=8)
+    v = torch.zeros(6, 64, 2, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention_streamed(q, q, v, 0.125)
+
+
+# ------------------------------------------------------ K2: the region bias
+
+def _bands_geometry(h, w, ns=2):
+    """GMFlow's shifted-window bands and ids for an (h, w) feature map (the
+    port's copy of the geometry: the card's machine has no JAX)."""
+    from prisma_tpu_torch.models import gmflow as pgm
+    return (pgm.shift_window_region_bands(h, w, ns),
+            pgm.shift_window_region_ids(h, w, ns))
+
+
+@pytest.mark.parametrize("hw", [(20, 24), (102, 180), (4, 12)])
+def test_region_geometry_is_the_jax_packages(hw):
+    from prisma_tpu.models import gmflow as jgm
+    bands, ids = _bands_geometry(*hw)
+    np.testing.assert_array_equal(bands, jgm.shift_window_region_bands(*hw, 2))
+    np.testing.assert_array_equal(ids, jgm.shift_window_region_ids(*hw, 2))
+
+
+def test_region_ids_mask():
+    """ids labels: the plain version against the Pallas kernel (interpret)
+    and `_xla_attention` (the cases of tests/test_flash_attention.py)."""
+    import jax.numpy as jnp
+
+    from prisma_tpu.ops.pallas.flash_attention import (_xla_attention,
+                                                       flash_attention as pallas)
+    rng = np.random.default_rng(2)
+    B, N, d = 2, 300, 64
+    q, k, v = (rng.normal(size=(B, N, d)).astype(np.float32) for _ in range(3))
+    ids = rng.integers(0, 4, size=(B, N)).astype(np.int32)
+    ours = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), ids=torch.from_numpy(ids))
+    jq, jk, jv, jids = (jnp.asarray(a) for a in (q, k, v, ids))
+    kernel = pallas(jq, jk, jv, ids=jids, block_q=128, block_k=128,
+                    interpret=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(kernel), atol=ATOL_F32)
+    np.testing.assert_allclose(
+        ours.numpy(), np.asarray(_xla_attention(jq, jk, jv, d ** -0.5, ids=jids)),
+        atol=ATOL_F32)
+
+
+def test_region_bands_match_ids_path():
+    """The bands form equals the ids form and the Pallas bands kernel
+    (interpret) on real shift-window geometry, batch 3 x 4 windows."""
+    import jax.numpy as jnp
+
+    from prisma_tpu.ops.pallas.flash_attention import flash_attention as pallas
+    rng = np.random.default_rng(5)
+    h, w, ns, d = 20, 24, 2, 64
+    bands, ids = _bands_geometry(h, w, ns)
+    win, ww = (h // ns) * (w // ns), w // ns
+    B = 3 * ns * ns
+    q, k, v = (rng.normal(size=(B, win, d)).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    via_bands = flash_attention(tq, tk, tv, region_bands=torch.from_numpy(bands),
+                                win_w=ww)
+    idst = torch.from_numpy(np.tile(ids, (3, 1)).astype(np.int32))
+    torch.testing.assert_close(via_bands, flash_attention(tq, tk, tv, ids=idst),
+                               rtol=0, atol=ATOL_F32)
+    kernel = pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    region_bands=jnp.asarray(bands), win_w=ww, block_q=128,
+                    block_k=128, interpret=True)
+    np.testing.assert_allclose(via_bands.numpy(), np.asarray(kernel),
+                               atol=ATOL_F32)
+
+
+def test_gmflow_window_attention_matches_xla():
+    """The port's windowed attention (split, K2's plain version with bands,
+    merge) against the JAX package's dense `_window_attention`, shifted."""
+    import jax.numpy as jnp
+
+    from prisma_tpu.models import gmflow as jgm
+    from prisma_tpu_torch.models import gmflow as pgm
+    rng = np.random.default_rng(3)
+    B, h, w, C, ns = 2, 20, 24, 32, 2
+    q, k, v = (rng.normal(size=(B, h * w, C)).astype(np.float32)
+               for _ in range(3))
+    ids = jgm.shift_window_region_ids(h, w, ns)
+    theirs = jgm._window_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), h, w, ns, ids, impl="xla")
+    split = [pgm._win_split(torch.from_numpy(a), h, w, ns, True)
+             for a in (q, k, v)]
+    out = pgm._window_attention_core(*split, pgm.region_bands(h, w, ns, "cpu"),
+                                     w // ns)
+    ours = pgm._win_merge(out, B, h, w, ns, True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL_F32)
+
+
+def emulate_bf16_region_kernel(q, k, v, codes, block_k=64):
+    """K2's bf16 arithmetic on the CPU: K1's tiles with the -100 penalty
+    subtracted in the log2 domain where the codes differ."""
+    B, N, d = q.shape
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((B, N, 1), -math.inf)
+    l = torch.zeros(B, N, 1)
+    acc = torch.zeros(B, N, d)
+    for k0 in range(0, N, block_k):
+        s = torch.bmm(qf, kf[:, k0:k0 + block_k].transpose(1, 2)) * scale_log2
+        differ = codes[:, :, None] != codes[:, None, k0:k0 + block_k]
+        s = s - differ.float() * (100.0 * math.log2(math.e))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.bmm(p.to(torch.bfloat16).float(),
+                                      vf[:, k0:k0 + block_k])
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+def test_bf16_bounds_catch_a_band_shifted_by_one_row():
+    """K2's card bounds have the power to see a misplaced band: the kernel's
+    arithmetic, emulated on one sample of 4 shifted windows (26 x 45 tokens,
+    the band structure of the 1080p windows at a quarter of their size),
+    passes them against the plain version, and fails them against the plain
+    version with bh one token row lower."""
+    from prisma_tpu_torch.ops.cuda.flash_attention import region_codes
+    h, w, ns = 52, 90, 2
+    bands, _ = _bands_geometry(h, w, ns)
+    n, ww = (h // ns) * (w // ns), w // ns
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(4, n, 128))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    tb = torch.from_numpy(bands)
+    out = emulate_bf16_region_kernel(q, k, v, region_codes(4, n, tb, ww))
+    assert_bf16_close(out, flash_attention_ref(q, k, v, region_bands=tb,
+                                               win_w=ww, round_p=True))
+    shifted = tb.clone()
+    shifted[:, 0] += 1
+    with pytest.raises(AssertionError):
+        assert_bf16_close(out, flash_attention_ref(
+            q, k, v, region_bands=shifted, win_w=ww, round_p=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,dtype,mode", [
+    (8, torch.bfloat16, "bands"),  # 2 samples of the 1080p shifted windows
+    (8, torch.bfloat16, "ids"),
+    (4, torch.float32, "bands"),   # the f32 FMA path
+])
+def test_region_kernel_matches_plain_on_card(B, dtype, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w, ns = 102, 180, 2
+    bands, ids = _bands_geometry(h, w, ns)
+    N, ww = ids.shape[1], w // ns
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, N, 128)).astype(np.float32))
+               .to("cuda", dtype) for _ in range(3))
+    kw = (dict(region_bands=torch.from_numpy(bands).cuda(), win_w=ww)
+          if mode == "bands" else
+          dict(ids=torch.from_numpy(np.tile(ids, (B // 4, 1))).cuda()))
+    before = flash_attention.region_launches
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.region_launches == before + 1
+    if dtype == torch.bfloat16:
+        assert_bf16_close(out, flash_attention_ref(q, k, v, round_p=True, **kw))
+    else:
+        torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw),
+                                   rtol=0, atol=ATOL_F32)
+
+
+# ------------------------------------------- K3: streamed global attention
+
+def test_flash_streamed_matches_softmax():
+    """Ragged N and M, N != M, coordinate-scale f32 values, custom scale:
+    the plain version against the Pallas streamed kernel (interpret) and the
+    explicit softmax (the case of tests/test_flash_attention.py, at the
+    port's dv = 4; the Pallas kernel takes v padded to 128 lanes)."""
+    import jax.numpy as jnp
+
+    from prisma_tpu.ops.pallas.flash_attention import flash_attention_streamed as pallas
+    rng = np.random.default_rng(7)
+    B, N, M, d = 2, 300, 550, 32
+    q = rng.normal(size=(B, N, d)).astype(np.float32)
+    k = rng.normal(size=(B, M, d)).astype(np.float32)
+    v = rng.uniform(0, 1440, size=(B, M, 4)).astype(np.float32)
+    scale = 1.0 / d ** 0.5
+    ours = flash_attention_streamed(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), scale)
+    assert ours.dtype == torch.float32 and ours.shape == (B, N, 4)
+    vp = np.concatenate([v, np.zeros((B, M, 124), np.float32)], axis=-1)
+    kernel = pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(vp),
+                    block_q=128, block_k=128, scale=scale, interpret=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(kernel)[..., :4],
+                               rtol=2e-5, atol=2e-3)
+    s = torch.from_numpy(q) @ torch.from_numpy(k).transpose(1, 2) * scale
+    dense = torch.softmax(s.double(), -1) @ torch.from_numpy(v).double()
+    np.testing.assert_allclose(ours.numpy(), dense.numpy(), rtol=2e-5,
+                               atol=2e-3)
+
+
+def test_gmflow_global_attend_matches_scan():
+    """The port's `_global_attend` (K3's plain version on the CPU) against
+    the JAX package's scan `_attn_blockwise` and its streamed-kernel route
+    (interpret, the backend check forced), on the matching shapes."""
+    import unittest.mock as mock
+
+    import jax
+    import jax.numpy as jnp
+
+    from prisma_tpu.models import gmflow as jgm
+    from prisma_tpu.ops.pallas import flash_attention as jfa
+    from prisma_tpu_torch.models import gmflow as pgm
+    rng = np.random.default_rng(11)
+    B, N, C = 2, 210, 64
+    q = rng.normal(size=(B, N, C)).astype(np.float32)
+    k = rng.normal(size=(B, N, C)).astype(np.float32)
+    scale = 1.0 / C ** 0.5
+    grid = jgm._coords_grid_flat(14, 15)
+    ours = pgm._global_attend(torch.from_numpy(q), torch.from_numpy(k),
+                              pgm._coords_grid_flat(14, 15, "cpu"), scale)
+    scan = jgm._attn_blockwise(jnp.asarray(q), jnp.asarray(k), grid, scale, 64)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(scan), rtol=1e-5,
+                               atol=1e-4)
+    real = jfa.flash_attention_streamed
+
+    def interp(qq, kk, vv, **kw):
+        kw.update(block_q=128, block_k=128, interpret=True)
+        return real(qq, kk, vv, **kw)
+
+    with mock.patch.object(jfa, "flash_attention_streamed", interp), \
+         mock.patch.object(jax, "default_backend", lambda: "tpu"):
+        kernel = jgm._global_attend(jnp.asarray(q), jnp.asarray(k), grid,
+                                    scale, 2048, None)
+    # the TPU route carries v as bf16 hi/lo halves: its own 5e-3 bar
+    np.testing.assert_allclose(ours.numpy(), np.asarray(kernel), rtol=1e-4,
+                               atol=5e-3)
+
+
+def emulate_streamed_kernel(q, k, v, scale, mask_tail=True, block_k=64):
+    """K3's arithmetic on the CPU: 64-key tiles, an online softmax in the
+    exp2 domain with f32 state, f32 unrounded P·V and l = Σp. mask_tail=False
+    lets the zero-filled keys of a ragged last tile in, as a kernel that
+    forgot the mask would."""
+    B, N, _ = q.shape
+    M = k.shape[1]
+    if not mask_tail:
+        pad = (-M) % block_k
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        M += pad
+    scale_log2 = scale * math.log2(math.e)
+    qf = q.float()
+    m = torch.full((B, N, 1), -math.inf)
+    l = torch.zeros(B, N, 1)
+    acc = torch.zeros(B, N, v.shape[-1])
+    for k0 in range(0, M, block_k):
+        s = torch.bmm(qf, k[:, k0:k0 + block_k].float().transpose(1, 2)) * scale_log2
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.bmm(p, v[:, k0:k0 + block_k])
+        m = m_new
+    return acc / l
+
+
+def assert_streamed_close(out, ref, v):
+    err = (out - ref).abs()
+    max_tol, mean_tol = streamed_bounds(v)
+    assert float(err.max()) <= max_tol, (float(err.max()), max_tol)
+    assert float(err.mean()) <= mean_tol, (float(err.mean()), mean_tol)
+
+
+def test_streamed_bounds_catch_an_unmasked_tail():
+    """K3's card bounds have the power to see a fault: at the ragged M =
+    18360 + 37 (a last tile of 29 keys), the kernel's arithmetic emulated
+    on bf16 features passes them, and fails them with the tail unmasked."""
+    rng = np.random.default_rng(4)
+    M = 18360 + 37
+    q, k = (torch.from_numpy(rng.normal(size=(1, n, 128)).astype(np.float32))
+            .to(torch.bfloat16) for n in (48, M))
+    v = torch.from_numpy(rng.uniform(0, 1440, size=(1, M, 2)).astype(np.float32))
+    scale = 128 ** -0.5
+    ref = flash_attention_streamed_ref(q, k, v, scale)
+    assert_streamed_close(emulate_streamed_kernel(q, k, v, scale), ref, v)
+    with pytest.raises(AssertionError):
+        assert_streamed_close(emulate_streamed_kernel(q, k, v, scale,
+                                                      mask_tail=False), ref, v)
+
+
+def test_streamed_cpu_wrapper_takes_plain_version():
+    rng = np.random.default_rng(1)
+    q, k = (torch.from_numpy(rng.normal(size=(2, n, 32)).astype(np.float32))
+            for n in (50, 70))
+    v = torch.from_numpy(rng.uniform(0, 90, size=(2, 70, 2)).astype(np.float32))
+    before = flash_attention_streamed.launches
+    out = flash_attention_streamed(q, k, v, 0.2)
+    assert flash_attention_streamed.launches == before
+    torch.testing.assert_close(out, flash_attention_streamed_ref(q, k, v, 0.2),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,d,dv,dtype", [
+    (2, 2000, 18360 + 37, 128, 2, torch.bfloat16),  # ragged matching keys
+    (2, 300, 550, 32, 4, torch.float32),            # the f32 FMA path
+    (1, 100, 130, 64, 1, torch.bfloat16),
+])
+def test_streamed_kernel_matches_plain_on_card(B, N, M, d, dv, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    q, k = (torch.from_numpy(rng.normal(size=(B, n, d)).astype(np.float32))
+            .to("cuda", dtype) for n in (N, M))
+    v = torch.from_numpy(rng.uniform(0, 1440, size=(B, M, dv))
+                         .astype(np.float32)).cuda()
+    scale = d ** -0.5
+    before = flash_attention_streamed.launches
+    out = flash_attention_streamed(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_streamed.launches == before + 1
+    assert_streamed_close(out, flash_attention_streamed_ref(q, k, v, scale), v)
