@@ -5,11 +5,12 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths through the bands' own entry points,
+It drives the port's three main paths through the bands' own entry points,
 with random weights from a seed: the Depth-Anything ViT-L video step on
-uint8 1080p frames at batch 8, and the GMFlow flow step on the same frames
-(7 bidirectional pairs at 810x1440, masks on). It holds every kernel of
-those paths against its plain PyTorch version. Each phase prints a line; a
+uint8 1080p frames at batch 8, and the GMFlow and RAFT flow steps on the
+same frames (7 bidirectional pairs at 810x1440, masks on), and the two probe
+kernels as their probe ran them. It holds every kernel against its plain
+PyTorch version. Each phase prints a line; a
 failed phase ends the run with a non-zero exit. Without a CUDA device it
 exits non-zero at once.
 
@@ -37,6 +38,21 @@ exits non-zero at once.
      activations every kernel call held to its plain version, and the flow
      held within 2x the null distance of a plain path that rounds P as
      K1/K2 do
+ 11. k5: K5 (RAFT's window lookup) against its plain version on the
+     pyramid of seeded bf16 fmaps at the RAFT main shape, centres off the
+     plane and not finite among them, and on a ragged f32 pyramid; the
+     bounds shown to fail on three deliberate faults; kernel, plain,
+     grid_sample and bound times
+ 12. raft-f32: a small-image RAFT (full widths, 4 iterations) in f32 with
+     TF32 off on the card against the CPU
+ 13. raft: the RAFT path at full width (20 iterations): launches of K4 and
+     K5 per step counted, outputs checked, pairs/s; then on one pair's real
+     activations every K4 and K5 call held to its plain version, and the
+     flow held within 2x the null distance of a plain path whose lookup
+     blends in bf16 as the JAX package does
+ 14. k6: the probe kernels K6a (lane gather) and K6b (minor transpose) at
+     the probe's shapes in f32 and bf16, equal to their plain versions;
+     times
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -61,7 +77,9 @@ WIN_SHAPE = (56, 4590, 128)    # 7 pairs doubled x 4 windows of 51x90 tokens, C=
 MATCH_SHAPE = (7, 18360, 128)  # global matching: 7 pairs, 102x180 tokens
 NORM_SHAPE = (14, 64, 408, 720)  # the backbone's largest instance norm
 ATOL_F32 = 2e-5  # f32 K1/K2 against the plain version: sums in another order
-PEAK_BF16, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 3.35e12, 16
+RAFT_ITERS = 20
+K5_OFFSET = 40.0  # K5's test centres: the pixel grid plus up to this many px
+PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 
 
 def fail(msg):
@@ -142,14 +160,18 @@ def main():
         fail("no CUDA device: this check runs only on the card")
     sys.path.insert(0, HERE)
     from prisma_tpu_torch.bands import (depth_anything_band, depth_base,
-                                        flow_base, flow_gmflow_band)
+                                        flow_base, flow_gmflow_band,
+                                        flow_raft_band)
     from prisma_tpu_torch.models import depth_anything as da
     from prisma_tpu_torch.models import gmflow as gm
+    from prisma_tpu_torch.models import raft
     from prisma_tpu_torch.models.vit import ViTConfig
     from prisma_tpu_torch.ops import nn as pnn
     from prisma_tpu_torch.ops.cuda import build
     from prisma_tpu_torch.ops.cuda import flash_attention as fa
     from prisma_tpu_torch.ops.cuda import instance_norm as inorm
+    from prisma_tpu_torch.ops.cuda import probe_gather as pg
+    from prisma_tpu_torch.ops.cuda import raft_lookup as rl
     from prisma_tpu_torch.ops.resize import resize2d
     from prisma_tpu_torch.runtime.config import RuntimeConfig
     from prisma_tpu_torch.weights import store
@@ -158,7 +180,14 @@ def main():
     counters = {"K1": (fa.flash_attention, "launches"),
                 "K2": (fa.flash_attention, "region_launches"),
                 "K3": (fa.flash_attention_streamed, "launches"),
-                "K4": (inorm.instance_norm_relu, "launches")}
+                "K4": (inorm.instance_norm_relu, "launches"),
+                "K5": (rl.window_lookup, "launches"),
+                "K6a": (pg.lane_gather, "launches"),
+                "K6b": (pg.minor_transpose, "launches")}
+
+    def per_path(**n):
+        """Expected launches: n for the named kernels, 0 for the others."""
+        return {key: n.get(key, 0) for key in counters}
 
     def zero_counts():
         for obj, attr in counters.values():
@@ -291,7 +320,7 @@ def main():
         if not (np.isfinite(dmin).all() and np.isfinite(dmax).all()
                 and (dmin < dmax).all()):
             fail(f"per-frame min/max not finite or not min < max: {dmin} {dmax}")
-    expect = {"K1": 24 * TIMED_STEPS, "K2": 0, "K3": 0, "K4": 0}
+    expect = per_path(K1=24 * TIMED_STEPS)
     if vit_counts != expect:
         fail(f"launches in {TIMED_STEPS} steps: {vit_counts}, expected {expect}")
     step_ms = elapsed / TIMED_STEPS * 1e3
@@ -338,8 +367,9 @@ def main():
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("K1 disagrees with its plain version on the main path's activations")
-    null_check("main", "depth", depth, float(depth["plain"].max()
-                                             - depth["plain"].min()))
+    null_check("main", "depth", depth["k1"], depth["plain"],
+               depth["plain_p_bf16"],
+               float(depth["plain"].max() - depth["plain"].min()))
     del model, step, outs, depth
     torch.cuda.empty_cache()
 
@@ -521,7 +551,7 @@ def main():
     counts = read_counts()
     err = float((f_gpu - f_cpu).abs().max())
     tol = 1e-4 * float(f_cpu.abs().max())
-    ok = (counts == {"K1": 6, "K2": 6, "K3": 3, "K4": 15}
+    ok = (counts == per_path(K1=6, K2=6, K3=3, K4=15)
           and bool(torch.isfinite(f_gpu).all()) and err <= tol)
     say("gmflow-f32", f"GMFlow (128 channels, 6 layers) 2 pairs at 128x192, "
         f"f32: max |flow_gpu - flow_cpu| {err:.3e} px, tol {tol:.3e} px (1e-4 "
@@ -550,18 +580,9 @@ def main():
     elapsed = time.perf_counter() - t0
     flow_counts = read_counts()
     P = BATCH - 1
-    for out in outs:
-        for key in ("fwd_rgb", "bwd_rgb"):
-            if out[key].shape != (P, *FLOW_HW, 3) or out[key].dtype != np.uint8:
-                fail(f"{key} {out[key].shape} {out[key].dtype}")
-        for key in ("fwd_mask", "bwd_mask"):
-            if out[key].shape != (P, *FLOW_HW) or out[key].dtype != np.bool_:
-                fail(f"{key} {out[key].shape} {out[key].dtype}")
-        if not (out["max_disp"].shape == (P,) and np.isfinite(out["max_disp"]).all()
-                and np.isfinite(out["fwd"]).all() and np.isfinite(out["bwd"]).all()):
-            fail(f"max_disp or flows not finite: {out['max_disp']}")
+    check_flow_outputs(outs)
     per_step = {"K1": 6, "K2": 6, "K3": 3, "K4": 15}
-    expect = {key: n * TIMED_STEPS for key, n in per_step.items()}
+    expect = per_path(**{key: n * TIMED_STEPS for key, n in per_step.items()})
     if flow_counts != expect:
         fail(f"launches in {TIMED_STEPS} steps: {flow_counts}, expected {expect}")
     say("flow", f"{TIMED_STEPS} steps: fwd_rgb/bwd_rgb {list(outs[0]['fwd_rgb'].shape)} "
@@ -631,13 +652,276 @@ def main():
     if not ok:
         fail(f"a kernel disagrees with its plain version on the flow path's "
              f"activations ({n_calls} calls)")
-    null_check("flow", "flow", {"k1": flows["kernels"], "plain": flows["plain"],
-                                "plain_p_bf16": flows["plain_p_bf16"]}, 1.0,
-               unit="px")
+    null_check("flow", "flow", flows["kernels"], flows["plain"],
+               flows["plain_p_bf16"], 1.0, unit="px")
+    del model, step, outs, flows, ds
+    torch.cuda.empty_cache()
 
-    launches = {key: vit_counts[key] + flow_counts[key] for key in counters}
-    by_path = {key: {"depth_anything_vitl": vit_counts[key],
-                     "flow_gmflow": flow_counts[key]} for key in counters}
+    # 11. K5: RAFT's window lookup, on the pyramid of the RAFT main shape
+    say("k5", "tolerances: bf16 max |err| <= 1 ulp of max |ref|, mean <= "
+        "2^-12 of mean |ref|; f32 max <= 1e-6 of max |ref|, mean <= 2^-20 of "
+        "mean |ref| (the same f32 blend in the same order on both sides, one "
+        "cast)")
+    B5 = 2 * (BATCH - 1)
+    f1, f2 = (normal((B5, 256, *FEAT_HW), torch.bfloat16) for _ in range(2))
+    pyr = raft.build_corr_pyramid(f1, f2, 4)
+    del f1, f2
+    N5 = B5 * FEAT_HW[0] * FEAT_HW[1]
+    grid5 = raft.coords_grid(B5, *FEAT_HW, "cuda").reshape(N5, 2)
+    coords = (grid5 + (torch.rand((N5, 2), generator=gen, device="cuda") * 2 - 1)
+              * K5_OFFSET).contiguous()
+    specials = torch.tensor([[1e6, 5.0], [-1e6, 5.0], [5.0, 1e6], [5.0, -1e6],
+                             [float("inf"), 5.0], [float("-inf"), 5.0],
+                             [5.0, float("nan")], [float("nan"), float("nan")]],
+                            device="cuda")
+    coords[:len(specials)] = specials
+    shapes = " ".join(f"{h}x{w}" for h, w in (v.shape[1:] for v in pyr))
+    out = rl.window_lookup(pyr, coords)
+    torch.cuda.synchronize()
+    ref = rl.window_lookup_ref(pyr, coords)
+    k5_err = report("k5", f"N = {N5} ({B5} x {FEAT_HW[0]}x{FEAT_HW[1]}), levels "
+                    f"{shapes} bf16, centres the grid +- {K5_OFFSET:.0f} px",
+                    out, ref, rl.bounds(ref))
+    if not bool((out[:len(specials)] == 0).all()):
+        fail("k5: a centre at +-1e6, +-inf or NaN gave a nonzero window")
+    say("k5", f"centres at +-1e6, +-inf and NaN: all-zero windows ok")
+    # the faults, on the first image's pixels
+    M = FEAT_HW[0] * FEAT_HW[1]
+    sub, cs, sref = [v[:M] for v in pyr], coords[:M], ref[:M]
+    tols = rl.bounds(sref)
+    must_fail("k5", "window in y-slow order", out[:M],
+              sref.view(M, 4, 9, 9).transpose(2, 3).reshape(M, -1), tols)
+    pad = 10
+    clamped = torch.cat([rl.window_lookup_ref(
+        [F.pad(v[:, None].float(), (pad,) * 4, mode="replicate")[:, 0]
+         .to(v.dtype)], cs / 2 ** level + pad) for level, v in enumerate(sub)],
+        dim=1)
+    must_fail("k5", "edge taps clamped instead of zeroed", out[:M], clamped,
+              tols)
+    undivided = torch.cat([sref[:, :81]] + [rl.window_lookup_ref([v], cs)
+                                            for v in sub[1:]], dim=1)
+    must_fail("k5", "centre not divided by 2^l on levels 1-3", out[:M],
+              undivided, tols)
+    del sub, cs, sref, clamped, undivided, ref
+    ms = cuda_ms(lambda: rl.window_lookup(pyr, coords), 20)
+    plain_ms = cuda_ms(lambda: rl.window_lookup_ref(pyr, coords), 3)
+    # the reference's form (corr.py:30-43): grid_sample of each level at the
+    # 9x9 window, align_corners=True, zero padding; its grid must take the
+    # volume's dtype (bf16: not the same numerics)
+    d = torch.arange(-4, 5, dtype=torch.float32, device="cuda")
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    delta = torch.stack([dy, dx], dim=-1)  # the reference's quirk: x slow
+    grids = []
+    for level, v in enumerate(pyr):
+        h, w = v.shape[1:]
+        g = coords[:, None, None].nan_to_num(0.0).clamp(-1e4, 1e4) / 2 ** level \
+            + delta
+        g = torch.stack([2 * g[..., 0] / (w - 1) - 1, 2 * g[..., 1] / (h - 1) - 1],
+                        dim=-1)
+        grids.append(g.to(v.dtype))
+    lib_ms = library_ms(lambda: [F.grid_sample(v[:, None], g, align_corners=True)
+                                 for v, g in zip(pyr, grids)], 5)
+    del grids
+    sectors = 0
+    for level, v in enumerate(pyr):
+        h, w = v.shape[1:]
+        x0, y0, _, _ = rl.clamped_centres(coords / 2 ** level, (h, w), 4)
+        xs, xe = (x0 - 4).clamp(0, w), (x0 + 6).clamp(0, w)
+        ys = y0[:, None] - 4 + torch.arange(10, device="cuda")
+        row = torch.arange(N5, device="cuda")[:, None] * (h * w) + ys * w
+        es = v.element_size()
+        first, last = (row + xs[:, None]) * es // 32, \
+            ((row + xe[:, None]) * es - 1) // 32
+        live = (ys >= 0) & (ys < h) & (xe > xs)[:, None]
+        sectors += int(torch.where(live, last - first + 1, 0).sum())
+    k5_bytes = 32 * sectors + nbytes(out, coords)
+    k5_ops = 11 * out.numel()  # per tap 4 weights, 4 products, 3 sums (f32)
+    t_ops, t_bytes = k5_ops / PEAK_F32, k5_bytes / HBM_BYTES_S
+    k5 = dict(max_abs_err=k5_err, ms=ms, plain_ms=plain_ms,
+              bound_ms=1e3 * max(t_ops, t_bytes),
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              library_ms=lib_ms, bound_bytes=k5_bytes)
+    say("k5", f"time at N = {N5}, four levels, bf16: kernel {ms:.3f} ms "
+        f"({k5_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of the bytes the windows "
+        f"touch), plain {plain_ms:.3f} ms, grid_sample (4 levels, bf16 grid) "
+        f"{lib_ms} ms, bound {k5['bound_ms']:.3f} ms ({k5['bound_by']}: "
+        f"{sectors} 32-byte sectors of in-range patch rows, {k5_bytes / 1e9:.3f} "
+        f"GB with the outputs and coords; the whole pyramid is "
+        f"{nbytes(*pyr) / 1e9:.2f} GB)")
+    del pyr, out, coords, grid5
+    torch.cuda.empty_cache()
+    # ragged: odd levels in f32, and bf16 with an empty level
+    for hws, dtype in ((((41, 57), (20, 28), (10, 14), (5, 7)), torch.float32),
+                       (((6, 9), (3, 4), (1, 2), (0, 1)), torch.bfloat16)):
+        n = 3001
+        rag = [normal((n, h, w), dtype) for h, w in hws]
+        h0, w0 = hws[0]
+        c = torch.stack([torch.rand(n, generator=gen, device="cuda") * (w0 + 20) - 10,
+                         torch.rand(n, generator=gen, device="cuda") * (h0 + 20) - 10],
+                        dim=1)
+        c[:len(specials)] = specials
+        out = rl.window_lookup(rag, c)
+        ref = rl.window_lookup_ref(rag, c)
+        report("k5", f"[{n}] {str(dtype)[6:]}, levels "
+               + " ".join(f"{h}x{w}" for h, w in hws), out, ref, rl.bounds(ref))
+        if not bool((out[:len(specials)] == 0).all()):
+            fail("k5: a non-finite or far centre gave a nonzero window")
+
+    # 12. RAFT in f32 on the card (TF32 off) against the CPU
+    cpu_raft = store.load_raft(cpu_rt)
+    gpu_raft = copy.deepcopy(cpu_raft).cuda()
+    with torch.inference_mode():
+        f_cpu = torch.cat(raft.infer_pairs(cpu_raft, imgs[:-1], imgs[1:], iters=4))
+        zero_counts()
+        g = imgs.cuda()
+        f_gpu = torch.cat(raft.infer_pairs(gpu_raft, g[:-1], g[1:], iters=4)).cpu()
+    counts = read_counts()
+    err = float((f_gpu - f_cpu).abs().max())
+    tol = 1e-4 * float(f_cpu.abs().max())
+    ok = (counts == per_path(K4=15, K5=4) and bool(torch.isfinite(f_gpu).all())
+          and err <= tol)
+    say("raft-f32", f"RAFT (full widths) 2 pairs at 128x192, 4 iterations, "
+        f"f32: max |flow_gpu - flow_cpu| {err:.3e} px, tol {tol:.3e} px (1e-4 "
+        f"of the flow scale, max |flow| {float(f_cpu.abs().max()):.2f}); "
+        f"launches {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the f32 RAFT on the card disagrees with the CPU")
+    del cpu_raft, gpu_raft
+
+    # 13. the RAFT path at full width
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lazy_model, infer = flow_raft_band.build_pairs(runtime, iterations=RAFT_ITERS)
+    model = lazy_model().to(device=runtime.resolve_device(),
+                            dtype=runtime.resolve_dtype())
+    step = flow_base.make_flow_step(model, infer, FLOW_HW, need_masks=True,
+                                    need_flow=True)
+    step(frames)  # warm-up
+    say("raft", f"RAFT (fnet 256, cnet 128+128, 4 levels, r=4, {RAFT_ITERS} "
+        f"iterations), bf16, random weights, {BATCH} frames = {BATCH - 1} "
+        f"bidirectional pairs at {FLOW_HW[0]}x{FLOW_HW[1]} (padded to "
+        f"{-(-FLOW_HW[0] // 8) * 8}x{-(-FLOW_HW[1] // 8) * 8}), masks and flows "
+        f"returned: set-up and warm-up {time.perf_counter() - t0:.2f} s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [step(frames) for _ in range(TIMED_STEPS)]
+    elapsed = time.perf_counter() - t0
+    raft_counts = read_counts()
+    check_flow_outputs(outs)
+    raft_step = {"K4": 15, "K5": RAFT_ITERS}
+    expect = per_path(**{key: n * TIMED_STEPS for key, n in raft_step.items()})
+    if raft_counts != expect:
+        fail(f"launches in {TIMED_STEPS} steps: {raft_counts}, expected {expect}")
+    say("raft", f"{TIMED_STEPS} steps: fwd_rgb/bwd_rgb {list(outs[0]['fwd_rgb'].shape)} "
+        f"uint8, masks {list(outs[0]['fwd_mask'].shape)} bool (fwd valid "
+        f"{float(outs[0]['fwd_mask'].mean()):.3f}), max-disp finite "
+        f"({', '.join(f'{m:.2f}' for m in outs[0]['max_disp'])}); launches "
+        f"{raft_counts} ({raft_step} per step, no K1-K3) ok")
+    say("raft", f"{P * TIMED_STEPS / elapsed:.2f} pairs/s "
+        f"({elapsed / TIMED_STEPS * 1e3:.1f} ms per step of {P} pairs, host "
+        f"clock, H2D and D2H included) on {card}")
+
+    # One pair's real activations: every K4 and K5 call held to its plain
+    # version; then the pair's flow with the plain versions in place of the
+    # kernels, and with a plain path whose lookup blends in bf16 as the JAX
+    # package does (the null distance).
+    x = torch.from_numpy(frames[:2]).cuda()
+    with torch.inference_mode():
+        ds = resize2d(x.float(), FLOW_HW, method="cubic").to(torch.bfloat16)
+    calls = {"K4": [], "K5": []}
+
+    def lookup_checked(pyramid, coords, r=4):
+        ref = rl.window_lookup_ref(pyramid, coords, r)
+        return ratios("K5", rl.window_lookup(pyramid, coords, r), ref,
+                      rl.bounds(ref))
+
+    paths = {
+        "kernels": (lookup_checked, norm_checked),
+        "plain": (rl.window_lookup_ref, inorm.instance_norm_relu_ref),
+        "plain_bf16_blend": (functools.partial(rl.window_lookup_ref,
+                                               blend_dtype=torch.bfloat16),
+                             inorm.instance_norm_relu_ref)}
+    flows = {}
+    with torch.inference_mode():
+        for name, (lookup, norm) in paths.items():
+            raft.window_lookup, raft.instance_norm_relu = lookup, norm
+            try:
+                flows[name] = torch.cat(infer(model, ds[:1], ds[1:])).float()
+            finally:
+                raft.window_lookup, raft.instance_norm_relu = (
+                    rl.window_lookup, inorm.instance_norm_relu)
+    n_calls = {key: len(v) for key, v in calls.items()}
+    ok = n_calls == raft_step and all(r[2] for v in calls.values() for r in v)
+    say("raft", "pair 0, every K4 and K5 call against its plain version on the "
+        "real activations, worst |err| / tol (max, mean): " + "; ".join(
+            f"{key} x{len(v)} {max(r[0] for r in v):.3f}, "
+            f"{max(r[1] for r in v):.3f}" for key, v in calls.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"a kernel disagrees with its plain version on the RAFT path's "
+             f"activations ({n_calls} calls)")
+    null_check("raft", "flow", flows["kernels"], flows["plain"],
+               flows["plain_bf16_blend"], 1.0, unit="px",
+               null_label="plain with the lookup blended in bf16")
+    del model, step, outs, flows, ds
+    torch.cuda.empty_cache()
+
+    # 14. K6: the probe kernels, as the probe ran them
+    cases_a = []
+    for (S, H), lo, hi in (((16, 128), -4, 124), ((16, 256), 0, 246),
+                           ((5760, 102), 0, 92)):
+        off = torch.from_numpy(rng.integers(lo, hi, S).astype(np.int32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            cases_a.append((torch.rand((S, H), generator=gen, device="cuda")
+                            .to(dtype), off))
+    cases_b = [torch.rand((8, 180, 16), generator=gen, device="cuda").to(dtype)
+               for dtype in (torch.float32, torch.bfloat16)]
+    zero_counts()
+    outs_a = [pg.lane_gather(x, off, 10) for x, off in cases_a]
+    outs_b = [pg.minor_transpose(x) for x in cases_b]
+    torch.cuda.synchronize()
+    probe_counts = read_counts()
+    if probe_counts != per_path(K6a=len(cases_a), K6b=len(cases_b)):
+        fail(f"probe launches {probe_counts}")
+    for (x, off), out in zip(cases_a, outs_a):
+        if not torch.equal(out, pg.lane_gather_ref(x, off, 10)):
+            fail(f"k6: lane_gather at {list(x.shape)} {x.dtype} differs from "
+                 f"its plain version")
+    for x, out in zip(cases_b, outs_b):
+        if not torch.equal(out, pg.minor_transpose_ref(x)):
+            fail(f"k6: minor_transpose at {list(x.shape)} {x.dtype} differs")
+    say("k6", "lane_gather at [16, 128], [16, 256], [5760, 102] and "
+        "minor_transpose at [8, 180, 16], f32 and bf16: equal to the plain "
+        f"versions; launches {probe_counts} ok")
+    x, off = cases_a[4]  # the probe's perf shape [5760, 102], f32
+    li = torch.arange(x.shape[1], device="cuda").clamp_max(9)
+    idx = (off.long()[:, None] + li).clamp(0, x.shape[1] - 1)
+    t_bytes = nbytes(x, outs_a[4], off) / HBM_BYTES_S
+    k6a = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: pg.lane_gather(x, off, 10), 50),
+               plain_ms=cuda_ms(lambda: pg.lane_gather_ref(x, off, 10), 50),
+               bound_ms=1e3 * t_bytes, bound_by="bytes",
+               library_ms=library_ms(lambda: torch.gather(x, 1, idx), 50))
+    x = cases_b[0]
+    k6b = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: pg.minor_transpose(x), 50),
+               plain_ms=cuda_ms(lambda: pg.minor_transpose_ref(x), 50),
+               bound_ms=1e3 * nbytes(x, outs_b[0]) / HBM_BYTES_S,
+               bound_by="bytes",
+               library_ms=library_ms(lambda: x.transpose(1, 2).contiguous(), 50))
+    say("k6", f"time, lane_gather [5760, 102] f32: kernel {k6a['ms']:.4f} ms, "
+        f"plain {k6a['plain_ms']:.4f} ms, torch.gather {k6a['library_ms']} ms, "
+        f"bound {k6a['bound_ms']:.4f} ms; minor_transpose [8, 180, 16] f32: "
+        f"kernel {k6b['ms']:.4f} ms, plain {k6b['plain_ms']:.4f} ms, "
+        f".transpose(1, 2).contiguous() {k6b['library_ms']} ms, bound "
+        f"{k6b['bound_ms']:.4f} ms (both launch-bound at these sizes)")
+
+    runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
+            "flow_raft": raft_counts, "probe": probe_counts}
+    launches = {key: sum(c[key] for c in runs.values()) for key in counters}
+    by_path = {key: {path: c[key] for path, c in runs.items()}
+               for key in counters}
     rows = [("flash_attention", "K1", "flash_attention.cu",
              "prisma_tpu/ops/pallas/flash_attention.py:58", k1),
             ("flash_attention_region", "K2", "flash_attention.cu",
@@ -645,7 +929,14 @@ def main():
             ("flash_attention_streamed", "K3", "flash_attention_streamed.cu",
              "prisma_tpu/ops/pallas/flash_attention.py:273", k3),
             ("instance_norm_relu", "K4", "instance_norm.cu",
-             "prisma_tpu/ops/pallas/instance_norm.py:35", k4)]
+             "prisma_tpu/ops/pallas/instance_norm.py:35", k4),
+            ("raft_window_lookup", "K5", "raft_lookup.cu",
+             "prisma_tpu/ops/pallas/raft_lookup.py:53",
+             dict(k5, also_replaces="prisma_tpu/ops/pallas/raft_window.py:80")),
+            ("lane_gather", "K6a", "probe_gather.cu",
+             "scripts/probe_gather_kernel.py:31", k6a),
+            ("minor_transpose", "K6b", "probe_gather.cu",
+             "scripts/probe_gather_kernel.py:53", k6b)]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"prisma_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -656,23 +947,39 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def null_check(phase, what, outs, span, unit="of the range"):
-    """outs: {'k1', 'plain', 'plain_p_bf16'}. The kernels' distance to the
-    plain path must stay within twice the distance of the plain path that
-    rounds P to bf16, in mean, 99.9th percentile and max (bf16 activations
-    amplify last-bit differences at scattered pixels)."""
-    def stats(name):
-        e = (outs[name] - outs["plain"]).abs().flatten() / span
+def check_flow_outputs(outs):
+    """A flow step's outputs for BATCH - 1 pairs at FLOW_HW: HSV frames,
+    masks, finite max-disp and flows."""
+    P = BATCH - 1
+    for out in outs:
+        for key in ("fwd_rgb", "bwd_rgb"):
+            if out[key].shape != (P, *FLOW_HW, 3) or out[key].dtype != np.uint8:
+                fail(f"{key} {out[key].shape} {out[key].dtype}")
+        for key in ("fwd_mask", "bwd_mask"):
+            if out[key].shape != (P, *FLOW_HW) or out[key].dtype != np.bool_:
+                fail(f"{key} {out[key].shape} {out[key].dtype}")
+        if not (out["max_disp"].shape == (P,) and np.isfinite(out["max_disp"]).all()
+                and np.isfinite(out["fwd"]).all() and np.isfinite(out["bwd"]).all()):
+            fail(f"max_disp or flows not finite: {out['max_disp']}")
+
+
+def null_check(phase, what, kernels, plain, null_path, span,
+               unit="of the range", null_label="plain with P rounded to bf16"):
+    """The kernels' output must stay within twice the distance to the plain
+    path of `null_path` (a plain path with the kernels' own roundings, or
+    the JAX package's), in mean, 99.9th percentile and max (bf16
+    activations amplify last-bit differences at scattered pixels)."""
+    def stats(out):
+        e = (out - plain).abs().flatten() / span
         return (float(e.mean()), float(torch.quantile(e, 0.999)),
                 float(e.max()))
 
-    got, null = stats("k1"), stats("plain_p_bf16")
-    ok = bool(torch.isfinite(outs["k1"]).all()) and \
+    got, null = stats(kernels), stats(null_path)
+    ok = bool(torch.isfinite(kernels).all()) and \
         all(g <= 2 * n for g, n in zip(got, null))
     say(phase, f"|{what} - {what} with the plain versions| ({unit}; mean, "
         f"99.9th pct, max): kernels " + ", ".join(f"{g:.3e}" for g in got)
-        + "; plain with P rounded to bf16 "
-        + ", ".join(f"{n:.3e}" for n in null)
+        + f"; {null_label} " + ", ".join(f"{n:.3e}" for n in null)
         + f"; tol 2x the latter {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"the {what} through the kernels disagrees with the plain path")

@@ -10,9 +10,12 @@ seed, uint8 1080p frames at batch 8) and prints:
 - the device time of each stage on a batch already on the card, from CUDA
   events (depth_anything: input resize + normalize, ViT, DPT head, resize
   back, heat; flow_gmflow: input resize, backbone, transformer, global
-  matching, propagation, upsampler, the HSV and consistency epilogue);
+  matching, propagation, upsampler, the HSV and consistency epilogue;
+  flow_raft: input resize, fnet + cnet, the correlation pyramid, the 20
+  iterations' K5 lookup, motion encoder, GRU and flow head, mask head +
+  convex upsample, the epilogue);
 - torch.profiler's device time per step, grouped by kernel family (K1 to
-  K4, GEMM, convolution, host copies, the rest), and the share of the step
+  K6, GEMM, convolution, host copies, the rest), and the share of the step
   the card is busy. The full per-kernel table goes to --out.
 """
 
@@ -49,12 +52,16 @@ def cuda_ms(fn, iters: int = 5) -> float:
 def kernel_family(name: str) -> str:
     """The family of a device kernel, by the symbol each kernel of the port
     carries (flash_fwd K1, flash_region K2, flash_streamed K3,
-    instance_norm_relu K4)."""
+    instance_norm_relu K4, raft_window_lookup K5, lane_gather K6a,
+    minor_transpose K6b)."""
     low = name.lower()
     for symbol, family in (("flash_region", "K2 flash attention, region bias"),
                            ("flash_streamed", "K3 streamed global attention"),
                            ("flash_fwd", "K1 flash attention"),
-                           ("instance_norm_relu", "K4 instance norm")):
+                           ("instance_norm_relu", "K4 instance norm"),
+                           ("raft_window_lookup", "K5 RAFT window lookup"),
+                           ("lane_gather", "K6a lane gather"),
+                           ("minor_transpose", "K6b minor transpose")):
         if symbol in low:
             return family
     if name.startswith("Memcpy"):
@@ -171,8 +178,101 @@ def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
     return step, stages
 
 
+def flow_raft_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the window already on the card}): the
+    band's step over 7 bidirectional pairs, 20 iterations, with masks and
+    flows returned. A refinement stage is timed once on its real inputs and
+    counted 20 times."""
+    import torch.nn.functional as F
+
+    from prisma_tpu_torch.bands import flow_base, flow_raft_band
+    from prisma_tpu_torch.models import raft
+    from prisma_tpu_torch.ops import encode as enc
+    from prisma_tpu_torch.ops.flow import compute_fwdbwd_mask
+    from prisma_tpu_torch.ops.resize import resize2d
+
+    iters = flow_raft_band.ITERATIONS
+    lazy_model, infer = flow_raft_band.build_pairs(runtime, iterations=iters)
+    model = lazy_model().to(device=runtime.resolve_device(),
+                            dtype=runtime.resolve_dtype())
+    H, W = frames.shape[1:3]
+    dh, dw = round(H * FLOW_SCALE), round(W * FLOW_SCALE)
+    step = flow_base.make_flow_step(model, infer, (dh, dw), need_masks=True,
+                                    need_flow=True)
+    step(frames)  # warm-up
+
+    dtype = runtime.resolve_dtype()
+    cfg = model.cfg
+    ub = model.update_block
+    x = torch.from_numpy(frames).to(runtime.resolve_device())
+    with torch.inference_mode():
+        ds = resize2d(x.float(), (dh, dw), method="cubic").to(dtype)
+        i1, _ = raft.pad_to_multiple(ds[:-1])
+        i2, _ = raft.pad_to_multiple(ds[1:])
+        B = i1.shape[0]
+        a = torch.cat([i1, i2])
+        xin = (2.0 * (a / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
+
+        def encoders():
+            fm = raft.encoder_forward(model.fnet, xin)
+            return fm, raft.encoder_forward(model.cnet, xin)
+
+        fm, cnet = encoders()
+        fmap2 = torch.cat([fm[B:], fm[:B]])
+        pyramid = raft.build_corr_pyramid(fm, fmap2, cfg.corr_levels)
+        net = torch.tanh(cnet[:, :cfg.hidden_dim])
+        inp = F.relu(cnet[:, cfg.hidden_dim:])
+        gru = raft.gru_weights(ub.gru)
+        coords = raft.coords_grid(2 * B, *fm.shape[-2:], fm.device)
+        coords = coords + torch.randn_like(coords)  # a moved flow field
+        flow = (coords - raft.coords_grid(2 * B, *fm.shape[-2:], fm.device))
+        flow = flow.to(dtype).permute(0, 3, 1, 2)
+        corr = raft.corr_lookup(pyramid, coords, cfg.corr_radius)
+        corr = corr.permute(0, 3, 1, 2)
+        motion = raft.motion_encoder(ub.encoder, flow, corr)
+        gru_in = torch.cat([inp, motion], dim=1)
+        net1 = raft.sep_conv_gru(gru, net, gru_in)
+        flow_low = flow.float().permute(0, 2, 3, 1)
+
+        def upsample():
+            mask = raft.mask_head(ub.mask, net1).float().permute(0, 2, 3, 1)
+            return raft.convex_upsample(flow_low, mask)
+
+        fwd, bwd = (f.float() for f in infer(model, ds[:-1], ds[1:]))
+
+        def epilogue():
+            enc.process_flow(fwd)
+            enc.process_flow(bwd)
+            compute_fwdbwd_mask(fwd, bwd)
+
+        per_iter = {
+            "K5 lookup": cuda_ms(lambda: raft.corr_lookup(pyramid, coords,
+                                                          cfg.corr_radius)),
+            "motion encoder": cuda_ms(lambda: raft.motion_encoder(
+                ub.encoder, flow, corr)),
+            "GRU": cuda_ms(lambda: raft.sep_conv_gru(gru, net, gru_in)),
+            "flow head": cuda_ms(lambda: raft.flow_head(ub.flow_head, net1)),
+        }
+        stages = {
+            "input resize (cubic, f32)": cuda_ms(
+                lambda: resize2d(x.float(), (dh, dw), method="cubic")),
+            "fnet + cnet (convs, 15 K4)": cuda_ms(encoders),
+            "correlation pyramid (4 matmuls)": cuda_ms(
+                lambda: raft.build_corr_pyramid(fm, fmap2, cfg.corr_levels), 3),
+            **{f"{iters} x {k} ({v:.2f} ms each)": iters * v
+               for k, v in per_iter.items()},
+            "mask head + convex x8": cuda_ms(upsample),
+            "HSV + consistency epilogue": cuda_ms(epilogue),
+        }
+        total = cuda_ms(lambda: infer(model, ds[:-1], ds[1:]), 3)
+    stages["the rest of infer_pairs (pad, loop glue, casts)"] = total - sum(
+        v for k, v in stages.items() if not k.startswith(("input", "HSV")))
+    return step, stages
+
+
 STEPS = {"depth_anything": (depth_anything_step, "frames"),
-         "flow_gmflow": (flow_gmflow_step, "pairs")}
+         "flow_gmflow": (flow_gmflow_step, "pairs"),
+         "flow_raft": (flow_raft_step, "pairs")}
 
 
 def main(argv=None):

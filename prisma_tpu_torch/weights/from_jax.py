@@ -1,8 +1,8 @@
 """The JAX package's parameter trees as the port's state_dicts.
 
-`depth_anything_state_dict` and `gmflow_state_dict` invert
-`prisma_tpu.weights.torch_convert.convert_depth_anything` and
-`convert_gmflow`: they take the JAX parameters as numpy arrays and return the
+`depth_anything_state_dict`, `gmflow_state_dict` and `raft_state_dict`
+invert `prisma_tpu.weights.torch_convert.convert_depth_anything`,
+`convert_gmflow` and `convert_raft`: they take the JAX parameters as numpy arrays and return the
 reference checkpoint's keys and layouts, so that tests can run both packages
 on the same weights.
 """
@@ -128,4 +128,57 @@ def gmflow_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
     _linear(sd, "feature_flow_attn.k_proj", fa["k"])
     _conv(sd, "upsampler.0", params_np["upsampler"]["conv1"])
     _conv(sd, "upsampler.2", params_np["upsampler"]["conv2"])
+    return sd
+
+
+def _unfold_bn(sd: dict, key: str, p: dict, eps: float = 1e-5) -> None:
+    """A folded eval-mode batch norm (scale, bias) as a BatchNorm2d's state:
+    weight = scale, bias = bias, running_mean = 0, running_var = 1 - eps, so
+    that convert_raft's fold w / sqrt(var + eps) gives the scale back within
+    an ulp."""
+    scale = _t(p["scale"])
+    sd[key + ".weight"] = scale
+    sd[key + ".bias"] = _t(p["bias"])
+    sd[key + ".running_mean"] = torch.zeros_like(scale)
+    sd[key + ".running_var"] = torch.full_like(scale, 1.0 - eps)
+    sd[key + ".num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def raft_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX RAFT tree (numpy leaves) -> the reference checkpoint's
+    `fnet.*` / `cnet.*` / `update_block.*` state_dict (without the
+    DataParallel `module.` prefix), f32 CPU tensors. fnet's instance norms
+    carry no parameters; cnet's folded batch norms are unfolded, and a
+    strided block's norm3 appears under both of its names, `norm3` and
+    `downsample.1`, as in the reference."""
+    sd: dict = {}
+    names = ("layer1.0", "layer1.1", "layer2.0", "layer2.1", "layer3.0",
+             "layer3.1")
+    for enc_name in ("fnet", "cnet"):
+        enc = params_np[enc_name]
+        _conv(sd, f"{enc_name}.conv1", enc["conv1"])
+        _conv(sd, f"{enc_name}.conv2", enc["conv2"])
+        if "norm1" in enc:
+            _unfold_bn(sd, f"{enc_name}.norm1", enc["norm1"])
+        for name, b in zip(names, enc["blocks"]):
+            k = f"{enc_name}.{name}."
+            _conv(sd, k + "conv1", b["conv1"])
+            _conv(sd, k + "conv2", b["conv2"])
+            for norm in ("norm1", "norm2"):
+                if norm in b:
+                    _unfold_bn(sd, k + norm, b[norm])
+            if "down" in b:
+                _conv(sd, k + "downsample.0", b["down"])
+            if "norm3" in b:
+                _unfold_bn(sd, k + "norm3", b["norm3"])
+                _unfold_bn(sd, k + "downsample.1", b["norm3"])
+    u = params_np["update"]
+    for name, p in u["encoder"].items():
+        _conv(sd, f"update_block.encoder.{name}", p)
+    for name, p in u["gru"].items():
+        _conv(sd, f"update_block.gru.{name}", p)
+    for name, p in u["flow_head"].items():
+        _conv(sd, f"update_block.flow_head.{name}", p)
+    _conv(sd, "update_block.mask.0", u["mask"]["conv1"])
+    _conv(sd, "update_block.mask.2", u["mask"]["conv2"])
     return sd

@@ -7,6 +7,7 @@ RuntimeConfig.models_dir):
 
   depth_anything_{vits,vitb,vitl}14.pt   torch state_dict (HF mixin layout)
   gmflow_sintel-0c07dcb3.pth             torch checkpoint, state_dict under 'model'
+  raft-sintel.pth                        torch state_dict, DataParallel `module.` keys
 
 With runtime.random_weights=True models initialize randomly from a seeded
 torch.Generator instead: same shapes, no files needed.
@@ -20,6 +21,7 @@ import torch
 
 from prisma_tpu_torch.models import depth_anything as da
 from prisma_tpu_torch.models import gmflow as gm
+from prisma_tpu_torch.models import raft
 from prisma_tpu_torch.models import vit as pvit
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 
@@ -86,5 +88,25 @@ def load_gmflow(runtime: RuntimeConfig,
             f"checkpoint {path} not found; place the gmflow checkpoint there "
             "or set runtime.random_weights=True for smoke runs")
     model = gm.build(cfg)
+    model.load_state_dict(_load_torch_state_dict(path), strict=True)
+    return model
+
+
+def load_raft(runtime: RuntimeConfig,
+              cfg: raft.RAFTConfig | None = None) -> raft.RAFT:
+    """RAFT, f32 on the CPU: random from the seed, or the reference
+    checkpoint `raft-sintel.pth` (reference flow_raft.py:33,42-44; its keys
+    carry DataParallel's `module.`, which the loader strips) loaded with
+    strict=True."""
+    cfg = cfg or raft.RAFTConfig()
+    if runtime.random_weights:
+        gen = torch.Generator().manual_seed(RANDOM_SEED)
+        return raft.init_params(raft.build(cfg), gen)
+    path = os.path.join(runtime.models_dir, "raft-sintel.pth")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"checkpoint {path} not found; place raft-sintel.pth there or set "
+            "runtime.random_weights=True for smoke runs")
+    model = raft.build(cfg)
     model.load_state_dict(_load_torch_state_dict(path), strict=True)
     return model
