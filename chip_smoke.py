@@ -15,9 +15,13 @@ failed phase ends the run with a non-zero exit. Without a CUDA device it
 exits non-zero at once.
 
   1. env: torch and CUDA versions, the card's name and power limit
-  2. build: every kernel of prisma_tpu_torch/csrc/, one nvcc each, together
-  3. k1: K1 flash attention against its plain version, four shapes; kernel,
-     plain, library call and bound at the ViT-L shape
+  2. build: every kernel of prisma_tpu_torch/csrc/, one nvcc each, together;
+     each kernel's registers and spills (ptxas), and the HGMMA, UTMALDG,
+     LDGSTS and HMMA counts of the bf16 kernels of flash_attention.cu
+     (cuobjdump -sass): each must use wgmma (HGMMA > 0) and no legacy HMMA
+  3. k1: K1 flash attention against its plain version, seven shapes (the
+     128-row tile edges at d=128 among them); kernel, plain, library call
+     and bound at the ViT-L shape
   4. f32: a tiny Depth-Anything in f32 with TF32 off on the card against
      the CPU
   5. main: the Depth-Anything path at full width (K1 launches counted,
@@ -62,6 +66,8 @@ import copy
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -80,6 +86,20 @@ ATOL_F32 = 2e-5  # f32 K1/K2 against the plain version: sums in another order
 RAFT_ITERS = 20
 K5_OFFSET = 40.0  # K5's test centres: the pixel grid plus up to this many px
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
+# each row of the kernels line: its kernel symbols in csrc/ and its design
+KERNEL_SYMBOLS = {
+    "K1": ("flash_fwd_bf16", "flash_fwd_f32"),
+    "K2": ("flash_region_bf16", "flash_region_f32"),
+    "K3": ("flash_streamed_bf16", "flash_streamed_f32"),
+    "K4": ("instance_norm_relu_kernel",),
+    "K5": ("raft_window_lookup_kernel",),
+    "K6a": ("lane_gather_kernel",),
+    "K6b": ("minor_transpose_kernel",)}
+DESIGNS = {
+    "K1": "wgmma+tma", "K2": "wgmma+tma",  # the bf16 kernels; f32 by FMA
+    "K3": "wmma+sync-loads", "K4": "block-reduction", "K5": "smem-staged-gather",
+    "K6a": "per-value-gather", "K6b": "smem-tiled-transpose"}
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
 
 def fail(msg):
@@ -155,6 +175,66 @@ def must_fail(phase, label, out, wrong_ref, tols):
         fail(f"{phase}: the bound does not see {label}")
 
 
+def kernel_label(mangled):
+    """'flash_fwd_bf16<64>' from a mangled kernel symbol of csrc/, or None."""
+    for symbols in KERNEL_SYMBOLS.values():
+        for sym in symbols:
+            m = re.search(rf"\d{sym}(?:I(.+?)E)?E+v", mangled)
+            if m:
+                arg = re.sub(r"^(Li|\d+)", "", m[1] or "")
+                arg = {"f": "float", "j": "uint32", "t": "uint16"}.get(arg, arg)
+                return f"{sym}<{arg}>" if arg else sym
+    return None
+
+
+def ptxas_table(log_path):
+    """{kernel label: {registers, spill_stores, spill_loads}} from the
+    -Xptxas -v lines nvcc left beside a library."""
+    table, label = {}, None
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                label = kernel_label(line.split("'")[1])
+                table[label] = {}
+            elif label and "spill stores" in line:
+                table[label].update(
+                    spill_stores=int(re.search(r"(\d+) bytes spill stores", line)[1]),
+                    spill_loads=int(re.search(r"(\d+) bytes spill loads", line)[1]))
+            elif label and re.search(r"Used \d+ registers", line):
+                table[label]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                          line)[1])
+    return table
+
+
+def sass_counts(lib_path):
+    """{kernel label: {opcode: count}} of SASS_OPS in a built library, from
+    the toolkit's cuobjdump (or Triton's copy of it)."""
+    cands = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                          "cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((c for c in cands if c and os.path.exists(c)), None)
+    if tool is None:
+        fail("no cuobjdump (toolkit or Triton) to read the kernels' SASS")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            label = kernel_label(line.split("Function :")[1].strip())
+            counts[label] = dict.fromkeys(SASS_OPS, 0)
+        elif label:
+            m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m and m[1] in SASS_OPS:
+                counts[label][m[1]] += 1
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this check runs only on the card")
@@ -222,11 +302,25 @@ def main():
         f"{os.path.relpath(build.CSRC_DIR, HERE)}/ "
         f"({', '.join(n + '.cu' for n in libs)}) in "
         f"{time.perf_counter() - t0:.2f} s")
+    regs = {}
     for name, path in libs.items():
-        with open(path + ".log") as f:
-            regs = [ln.split("info    :")[-1].strip() for ln in f
-                    if "registers" in ln]
-        say("build", f"{os.path.relpath(path, HERE)}; ptxas: {' | '.join(regs)}")
+        table = ptxas_table(path + ".log")
+        regs.update(table)
+        say("build", f"{os.path.relpath(path, HERE)}; ptxas (registers, spill "
+            f"stores/loads in bytes): " + " | ".join(
+                f"{label} {r['registers']}, {r['spill_stores']}/{r['spill_loads']}"
+                for label, r in table.items()))
+    sass = sass_counts(libs["flash_attention"])
+    bf16_sass = {label: c for label, c in sass.items() if "_bf16" in label}
+    for label, c in bf16_sass.items():
+        say("build", f"SASS of {label}: " + ", ".join(f"{op} {n}" for op, n in c.items())
+            + f"; {regs[label]['registers']} registers a thread at launch (the "
+            f"consumer warpgroups raise theirs with setmaxnreg), "
+            f"{regs[label]['spill_stores']} bytes of spill stores")
+    # flash_fwd_bf16 and flash_region_bf16 at d = 32, 64 and 128
+    if len(bf16_sass) != 6 or any(c["HGMMA"] == 0 or c["HMMA"] for c in bf16_sass.values()):
+        fail(f"the bf16 kernels of flash_attention.cu must run on wgmma (HGMMA) "
+             f"and not on the legacy mma.sync path (HMMA): {bf16_sass}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -249,7 +343,12 @@ def main():
     for shape, dtype in ((MAIN_SHAPE, torch.bfloat16),
                          ((6, 100, 32), torch.float32),
                          ((6, 100, 32), torch.bfloat16),  # ragged bf16, d=32
-                         ((4, 1024, 128), torch.bfloat16)):
+                         ((4, 1024, 128), torch.bfloat16),
+                         # the 128-row tiles' edges at d=128: one key, one
+                         # short of a tile, one over (two tiles)
+                         ((4, 1, 128), torch.bfloat16),
+                         ((4, 127, 128), torch.bfloat16),
+                         ((4, 129, 128), torch.bfloat16)):
         q, k, v = (normal(shape, dtype) for _ in range(3))
         out = fa.flash_attention(q, k, v)
         ref = (plain_p_bf16 if dtype == torch.bfloat16
@@ -266,7 +365,8 @@ def main():
             k1 = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
             say("k1", f"time at {list(shape)} bf16: kernel {ms:.3f} ms "
-                f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+                f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+                f"{bound_ms / ms:.1%} of the bound), plain "
                 f"{plain_ms:.3f} ms, scaled_dot_product_attention "
                 f"{lib_ms} ms on [8, 16, {N}, {d}], bound {bound_ms:.3f} ms "
                 f"({bound_by}), on {card}")
@@ -407,7 +507,8 @@ def main():
     k2 = dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, library_ms=lib_ms)
     say("k2", f"time at {list(WIN_SHAPE)} bf16: kernel {ms:.3f} ms "
-        f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+        f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.1%} of the bound), plain "
         f"{plain_ms:.3f} ms, scaled_dot_product_attention with a float "
         f"[1, 4, N, N] mask {lib_ms} ms, bound {bound_ms:.3f} ms ({bound_by})")
     del mask
@@ -423,9 +524,11 @@ def main():
     k1["at_gmflow_windows"] = dict(shape=list(WIN_SHAPE), max_abs_err=k1_win_err,
                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=lib_ms)
-    say("k1", f"time at {list(WIN_SHAPE)} bf16: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by})")
+    say("k1", f"time at {list(WIN_SHAPE)} bf16: kernel {ms:.3f} ms "
+        f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {lib_ms} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by})")
     del q, k, v, q4, k4, v4, out
     torch.cuda.empty_cache()
     # ragged: ids labels at N = 300 (bf16) and bands on a small map (f32)
@@ -937,10 +1040,17 @@ def main():
              "scripts/probe_gather_kernel.py:31", k6a),
             ("minor_transpose", "K6b", "probe_gather.cu",
              "scripts/probe_gather_kernel.py:53", k6b)]
+
+    def compiled(key, table):
+        return {label: v for label, v in table.items()
+                if label and label.split("<")[0] in KERNEL_SYMBOLS[key]}
+
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"prisma_tpu_torch/csrc/{src}", "replaces": replaces,
-        "launches": launches[key], "launches_by_path": by_path[key], **row}
+        "launches": launches[key], "launches_by_path": by_path[key], **row,
+        "design": DESIGNS[key], "registers": compiled(key, regs),
+        **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2") else {})}
         for name, key, src, replaces, row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

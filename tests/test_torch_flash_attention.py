@@ -34,31 +34,46 @@ def assert_bf16_close(out, ref):
     assert float(err.mean()) <= mean_tol, (float(err.mean()), mean_tol)
 
 
-def emulate_bf16_kernel(q, k, v, mask_tail=True, block_k=64):
-    """The bf16 kernel's arithmetic on the CPU: 64-key tiles, an online
-    softmax in the exp2 domain with f32 state, P rounded to bf16 for P·V and
-    the f32 P summed into the denominator. mask_tail=False lets the
-    zero-filled keys of a ragged last tile in, as a kernel that forgot the
-    mask would."""
+# keys per tile of the bf16 kernel (TK in csrc/flash_attention.cu)
+BLOCK_K = 128
+PENALTY_LOG2 = 100.0 * math.log2(math.e)
+
+
+def emulate_bf16_kernel(q, k, v, codes=None, mask_tail=True, block_k=BLOCK_K):
+    """The bf16 kernel's arithmetic on the CPU: 128-key tiles, an online
+    softmax in the exp2 domain with f32 state, the region penalty (K2:
+    `codes` [B, N], the region code of each token) subtracted from the scaled
+    f32 score where a query's and a key's codes differ, P rounded to bf16 for
+    P·V and the f32 P summed into the denominator, each thread's 32 columns
+    of a row apart and the row's four threads joined at the end.
+    mask_tail=False lets the zero-filled keys of a ragged last tile in (code
+    0), as a kernel that forgot the mask would."""
     B, N, d = q.shape
     scale_log2 = math.log2(math.e) / math.sqrt(d)
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full((B, N, 1), -math.inf)
-    l = torch.zeros(B, N, 1)
+    l = torch.zeros(B, N, 4)  # a row's four threads: columns 8c + 2t, 8c + 2t + 1
     acc = torch.zeros(B, N, d)
     for k0 in range(0, N, block_k):
         kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        pad = block_k - kt.shape[1]
         if not mask_tail:
-            pad = (0, 0, 0, block_k - kt.shape[1])
-            kt, vt = torch.nn.functional.pad(kt, pad), torch.nn.functional.pad(vt, pad)
+            kt, vt = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (kt, vt))
         s = torch.bmm(qf, kt.transpose(1, 2)) * scale_log2
+        if codes is not None:
+            kc = codes[:, k0:k0 + block_k]
+            if not mask_tail:
+                kc = torch.nn.functional.pad(kc, (0, pad))
+            s = s - (codes[:, :, None] != kc[:, None, :]).float() * PENALTY_LOG2
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        cols = p.shape[-1]
+        part = torch.nn.functional.pad(p, (0, (-cols) % 8)).view(B, N, -1, 4, 2)
+        l = l * alpha + part.sum(dim=(2, 4))
         acc = acc * alpha + torch.bmm(p.to(torch.bfloat16).float(), vt)
         m = m_new
-    return (acc / l).to(torch.bfloat16)
+    return (acc / l.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
 
 CASES = [
     # (seed, B, N, d, q is k is v, Pallas block sizes)
@@ -108,7 +123,7 @@ def test_bf16_bounds_pass_the_kernel_arithmetic_and_catch_an_unmasked_tail(
         B, N, d):
     """The card test's bf16 bounds have the power to see a fault: the
     kernel's arithmetic, emulated, passes them; the same arithmetic with the
-    ragged last key tile unmasked (2443 = 38 x 64 + 11) fails them."""
+    ragged last key tile unmasked (2443 = 19 x 128 + 11) fails them."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _inputs(4, B, N, d, False))
     ref = flash_attention_ref(q, k, v, round_p=True)
@@ -130,8 +145,17 @@ def test_cpu_wrapper_takes_plain_version():
 @pytest.mark.parametrize("B,N,d,dtype", [
     (128, 2443, 64, torch.bfloat16),  # the ViT-L 1080p batch-8 shape
     (6, 100, 32, torch.float32),      # ragged, the f32 FMA path
-    (6, 100, 32, torch.bfloat16),     # ragged, the bf16 d=32 instance
+    (6, 100, 32, torch.bfloat16),     # ragged, the bf16 d=32 instance (64-byte swizzle)
     (4, 1024, 128, torch.bfloat16),
+    # the 128-row tiles at d=128 (two 64-column swizzle atoms): a key tile
+    # of one row, a ragged single tile, one row short of a tile, one row
+    # over (two tiles, the ring's barriers in their second phase), and the
+    # GMFlow window length (35 x 128 + 110: an odd tile count)
+    (3, 1, 128, torch.bfloat16),
+    (3, 100, 128, torch.bfloat16),
+    (3, 127, 128, torch.bfloat16),
+    (3, 129, 128, torch.bfloat16),
+    (3, 4590, 128, torch.bfloat16),
 ])
 def test_kernel_matches_plain_on_card(B, N, d, dtype):
     if not torch.cuda.is_available():
@@ -256,29 +280,6 @@ def test_gmflow_window_attention_matches_xla():
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL_F32)
 
 
-def emulate_bf16_region_kernel(q, k, v, codes, block_k=64):
-    """K2's bf16 arithmetic on the CPU: K1's tiles with the -100 penalty
-    subtracted in the log2 domain where the codes differ."""
-    B, N, d = q.shape
-    scale_log2 = math.log2(math.e) / math.sqrt(d)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    m = torch.full((B, N, 1), -math.inf)
-    l = torch.zeros(B, N, 1)
-    acc = torch.zeros(B, N, d)
-    for k0 in range(0, N, block_k):
-        s = torch.bmm(qf, kf[:, k0:k0 + block_k].transpose(1, 2)) * scale_log2
-        differ = codes[:, :, None] != codes[:, None, k0:k0 + block_k]
-        s = s - differ.float() * (100.0 * math.log2(math.e))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.bmm(p.to(torch.bfloat16).float(),
-                                      vf[:, k0:k0 + block_k])
-        m = m_new
-    return (acc / l).to(torch.bfloat16)
-
-
 def test_bf16_bounds_catch_a_band_shifted_by_one_row():
     """K2's card bounds have the power to see a misplaced band: the kernel's
     arithmetic, emulated on one sample of 4 shifted windows (26 x 45 tokens,
@@ -294,7 +295,7 @@ def test_bf16_bounds_catch_a_band_shifted_by_one_row():
                                 .astype(np.float32)).to(torch.bfloat16)
                for _ in range(3))
     tb = torch.from_numpy(bands)
-    out = emulate_bf16_region_kernel(q, k, v, region_codes(4, n, tb, ww))
+    out = emulate_bf16_kernel(q, k, v, codes=region_codes(4, n, tb, ww))
     assert_bf16_close(out, flash_attention_ref(q, k, v, region_bands=tb,
                                                win_w=ww, round_p=True))
     shifted = tb.clone()
@@ -304,11 +305,74 @@ def test_bf16_bounds_catch_a_band_shifted_by_one_row():
             q, k, v, region_bands=shifted, win_w=ww, round_p=True))
 
 
+def _main_path_case(kind):
+    """(q, k, v, region kwargs of the plain version, codes for the emulation)
+    at a main-path row shape: ViT-L [2, 2443, 64]; one 1080p GMFlow window
+    row per band kind [4, 4590, 128] (the (102, 180) feature map's 2x2
+    shifted windows: one without a boundary, one with a row band, one with a
+    column band, one with both), from bands or from ids; a ragged d=32 case
+    [6, 100, 32], bias-free or with random ids."""
+    from prisma_tpu_torch.ops.cuda.flash_attention import region_codes
+    shape = {"vitl": (2, 2443, 64), "bands": (4, 4590, 128),
+             "ids": (4, 4590, 128), "ragged_d32": (6, 100, 32),
+             "ragged_d32_ids": (6, 100, 32)}[kind]
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    B, N, _ = shape
+    if kind == "bands":
+        bands = torch.from_numpy(_bands_geometry(102, 180)[0])
+        kw = dict(region_bands=bands, win_w=90)
+        return q, k, v, kw, region_codes(B, N, bands, 90)
+    if kind in ("ids", "ragged_d32_ids"):
+        ids = (torch.from_numpy(_bands_geometry(102, 180)[1]) if kind == "ids"
+               else torch.from_numpy(rng.integers(0, 4, size=(B, N)).astype(np.int32)))
+        return q, k, v, dict(ids=ids), ids
+    return q, k, v, {}, None
+
+
+@pytest.mark.parametrize("kind", ["vitl", "bands", "ids", "ragged_d32",
+                                  "ragged_d32_ids"])
+def test_bf16_bounds_pass_the_hopper_tile_arithmetic(kind):
+    """The bf16 kernel's tile arithmetic (128-key tiles, region codes, f32
+    row sums per thread) at the main-path row shapes stays within
+    `bf16_bounds` of the plain version with P rounded to bf16."""
+    q, k, v, kw, codes = _main_path_case(kind)
+    assert_bf16_close(emulate_bf16_kernel(q, k, v, codes=codes),
+                      flash_attention_ref(q, k, v, round_p=True, **kw))
+
+
+@pytest.mark.parametrize("kind,fault", [
+    ("vitl", "unmasked_tail"),            # 2443 = 19 x 128 + 11: 117 zero keys
+    ("ragged_d32", "unmasked_tail"),      # 100 of 128: 28 zero keys
+    ("ragged_d32_ids", "unmasked_tail"),
+    ("bands", "band_one_row_down"),       # bh + 1: 90 tokens change region
+])
+def test_bf16_bounds_catch_faults_at_the_hopper_tiles(kind, fault):
+    """The same bounds fail the arithmetic of a kernel with a fault at the
+    new tile size: the ragged last 128-key tile unmasked, or the bands moved
+    down one token row."""
+    q, k, v, kw, codes = _main_path_case(kind)
+    if fault == "unmasked_tail":
+        out = emulate_bf16_kernel(q, k, v, codes=codes, mask_tail=False)
+        ref = flash_attention_ref(q, k, v, round_p=True, **kw)
+    else:
+        out = emulate_bf16_kernel(q, k, v, codes=codes)
+        shifted = kw["region_bands"].clone()
+        shifted[:, 0] += 1
+        ref = flash_attention_ref(q, k, v, round_p=True, region_bands=shifted,
+                                  win_w=kw["win_w"])
+    with pytest.raises(AssertionError):
+        assert_bf16_close(out, ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,dtype,mode", [
     (8, torch.bfloat16, "bands"),  # 2 samples of the 1080p shifted windows
     (8, torch.bfloat16, "ids"),
     (4, torch.float32, "bands"),   # the f32 FMA path
+    (56, torch.bfloat16, "bands"),  # the GMFlow step's batch: 14 x 4 windows
+    (6, torch.bfloat16, "random_ids"),  # [6, 300, 64]: labels 0-3, a ragged tail
 ])
 def test_region_kernel_matches_plain_on_card(B, dtype, mode):
     if not torch.cuda.is_available():
@@ -316,13 +380,16 @@ def test_region_kernel_matches_plain_on_card(B, dtype, mode):
     torch.backends.cuda.matmul.allow_tf32 = False
     h, w, ns = 102, 180, 2
     bands, ids = _bands_geometry(h, w, ns)
-    N, ww = ids.shape[1], w // ns
+    N, ww, d = ids.shape[1], w // ns, 128
     rng = np.random.default_rng(1)
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, N, 128)).astype(np.float32))
+    if mode == "random_ids":
+        N, d = 300, 64
+        ids = rng.integers(0, 4, size=(B, N)).astype(np.int32)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, N, d)).astype(np.float32))
                .to("cuda", dtype) for _ in range(3))
     kw = (dict(region_bands=torch.from_numpy(bands).cuda(), win_w=ww)
           if mode == "bands" else
-          dict(ids=torch.from_numpy(np.tile(ids, (B // 4, 1))).cuda()))
+          dict(ids=torch.from_numpy(np.tile(ids, (B // ids.shape[0], 1))).cuda()))
     before = flash_attention.region_launches
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
