@@ -17,8 +17,10 @@ exits non-zero at once.
   1. env: torch and CUDA versions, the card's name and power limit
   2. build: every kernel of prisma_tpu_torch/csrc/, one nvcc each, together;
      each kernel's registers and spills (ptxas), and the HGMMA, UTMALDG,
-     LDGSTS and HMMA counts of the bf16 kernels of flash_attention.cu
-     (cuobjdump -sass): each must use wgmma (HGMMA > 0) and no legacy HMMA
+     LDGSTS and HMMA counts of the bf16 kernels of flash_attention.cu and
+     flash_attention_streamed.cu (cuobjdump -sass): each must use wgmma
+     (HGMMA > 0) and no legacy HMMA, and ptxas must serialize the wgmma of
+     none (C7514/C7515)
   3. k1: K1 flash attention against its plain version, seven shapes (the
      128-row tile edges at d=128 among them); kernel, plain, library call
      and bound at the ViT-L shape
@@ -31,8 +33,12 @@ exits non-zero at once.
      the GMFlow window shape and two ragged cases; the bound shown to fail
      with the band moved by one token row; K1 and K2 times at that shape
   7. k3: K3 (streamed global attention) at the matching and propagation
-     shapes and a ragged key count; the bound shown to fail with the
-     ragged tail unmasked; times
+     shapes, a peaked case (keys a permutation of the queries times 4: each
+     softmax nearly one-hot) and a ragged key count; the bound shown to fail
+     with v shifted by one key tile (the neighbouring ring slot) on the
+     peaked case and with the ragged tail unmasked; kernel, plain, SDPA (v
+     padded) and bound times at both shapes, and a model of the L2 bytes of
+     a call (from the tile schedule)
   8. k4: K4 (instance norm) at the largest backbone norm and a ragged f32
      case; the f32 bound shown to fail on an eps and a ddof slip; times
   9. gmflow-f32: a small-image GMFlow (full 128 channels, 6 layers) in f32
@@ -56,7 +62,8 @@ exits non-zero at once.
      blends in bf16 as the JAX package does
  14. k6: the probe kernels K6a (lane gather) and K6b (minor transpose) at
      the probe's shapes in f32 and bf16, equal to their plain versions;
-     times
+     times back to back, device time alone (torch.profiler), host µs per
+     wrapper call, and an empty kernel through the same launch path
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -86,6 +93,8 @@ ATOL_F32 = 2e-5  # f32 K1/K2 against the plain version: sums in another order
 RAFT_ITERS = 20
 K5_OFFSET = 40.0  # K5's test centres: the pixel grid plus up to this many px
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
+# K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
+K3_TILE_Q, K3_TILE_K = 256, 128
 # each row of the kernels line: its kernel symbols in csrc/ and its design
 KERNEL_SYMBOLS = {
     "K1": ("flash_fwd_bf16", "flash_fwd_f32"),
@@ -97,7 +106,8 @@ KERNEL_SYMBOLS = {
     "K6b": ("minor_transpose_kernel",)}
 DESIGNS = {
     "K1": "wgmma+tma", "K2": "wgmma+tma",  # the bf16 kernels; f32 by FMA
-    "K3": "wmma+sync-loads", "K4": "block-reduction", "K5": "smem-staged-gather",
+    "K3": "wgmma+tma, two S in flight", "K4": "block-reduction",
+    "K5": "smem-staged-gather",
     "K6a": "per-value-gather", "K6b": "smem-tiled-transpose"}
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
@@ -132,6 +142,26 @@ def library_ms(fn, iters=10):
     except RuntimeError as e:
         say("library", f"no backend takes it: {str(e).splitlines()[0]}")
         return None
+
+
+def device_us(fns, symbols, calls=50):
+    """{key: device microseconds per call} of fns[key] from torch.profiler:
+    the device time of the kernels whose name holds symbols[key]."""
+    prof_kw = dict(activities=[torch.profiler.ProfilerActivity.CPU,
+                               torch.profiler.ProfilerActivity.CUDA])
+    out = {}
+    for key, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(**prof_kw) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and symbols[key] in e.key)
+        out[key] = total / calls
+    return out
 
 
 def bound(flops, nbytes):
@@ -181,9 +211,10 @@ def kernel_label(mangled):
         for sym in symbols:
             m = re.search(rf"\d{sym}(?:I(.+?)E)?E+v", mangled)
             if m:
-                arg = re.sub(r"^(Li|\d+)", "", m[1] or "")
-                arg = {"f": "float", "j": "uint32", "t": "uint16"}.get(arg, arg)
-                return f"{sym}<{arg}>" if arg else sym
+                args = [re.sub(r"^(Li|\d+)", "", a) for a in (m[1] or "").split("E")]
+                args = [{"f": "float", "j": "uint32", "t": "uint16"}.get(a, a)
+                        for a in args if a]
+                return f"{sym}<{', '.join(args)}>" if args else sym
     return None
 
 
@@ -194,8 +225,9 @@ def ptxas_table(log_path):
     with open(log_path) as f:
         for line in f:
             if "Compiling entry function" in line:
-                label = kernel_label(line.split("'")[1])
-                table[label] = {}
+                label = kernel_label(line.split("'")[1])  # None: not a path's kernel
+                if label:
+                    table[label] = {}
             elif label and "spill stores" in line:
                 table[label].update(
                     spill_stores=int(re.search(r"(\d+) bytes spill stores", line)[1]),
@@ -227,7 +259,8 @@ def sass_counts(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             label = kernel_label(line.split("Function :")[1].strip())
-            counts[label] = dict.fromkeys(SASS_OPS, 0)
+            if label:
+                counts[label] = dict.fromkeys(SASS_OPS, 0)
         elif label:
             m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
             if m and m[1] in SASS_OPS:
@@ -253,6 +286,7 @@ def main():
     from prisma_tpu_torch.ops.cuda import probe_gather as pg
     from prisma_tpu_torch.ops.cuda import raft_lookup as rl
     from prisma_tpu_torch.ops.resize import resize2d
+    from prisma_tpu_torch.runtime import launch_cost
     from prisma_tpu_torch.runtime.config import RuntimeConfig
     from prisma_tpu_torch.weights import store
     import torch.nn.functional as F
@@ -310,17 +344,28 @@ def main():
             f"stores/loads in bytes): " + " | ".join(
                 f"{label} {r['registers']}, {r['spill_stores']}/{r['spill_loads']}"
                 for label, r in table.items()))
-    sass = sass_counts(libs["flash_attention"])
+    sass = {**sass_counts(libs["flash_attention"]),
+            **sass_counts(libs["flash_attention_streamed"])}
     bf16_sass = {label: c for label, c in sass.items() if "_bf16" in label}
     for label, c in bf16_sass.items():
         say("build", f"SASS of {label}: " + ", ".join(f"{op} {n}" for op, n in c.items())
             + f"; {regs[label]['registers']} registers a thread at launch (the "
             f"consumer warpgroups raise theirs with setmaxnreg), "
             f"{regs[label]['spill_stores']} bytes of spill stores")
-    # flash_fwd_bf16 and flash_region_bf16 at d = 32, 64 and 128
-    if len(bf16_sass) != 6 or any(c["HGMMA"] == 0 or c["HMMA"] for c in bf16_sass.values()):
-        fail(f"the bf16 kernels of flash_attention.cu must run on wgmma (HGMMA) "
-             f"and not on the legacy mma.sync path (HMMA): {bf16_sass}")
+    # flash_fwd_bf16 and flash_region_bf16 at d = 32, 64 and 128, and
+    # flash_streamed_bf16 at d = 32, 64, 128 and dv padded to 2 or 4
+    if len(bf16_sass) != 12 or any(c["HGMMA"] == 0 or c["HMMA"] for c in bf16_sass.values()):
+        fail(f"the bf16 attention kernels must run on wgmma (HGMMA) and not on "
+             f"the legacy mma.sync path (HMMA): {bf16_sass}")
+    for name in ("flash_attention", "flash_attention_streamed"):
+        with open(libs[name] + ".log") as f:
+            serialized = f.read().count("wgmma.mma_async instructions are serialized")
+        say("build", f"{name}.cu: ptxas serialized the wgmma of {serialized} "
+            f"kernel(s) (C7514/C7515)")
+        if serialized:
+            fail(f"ptxas serialized the wgmma of {serialized} kernel(s) of "
+                 f"{name}.cu: a wgmma group's accumulator is touched, or a "
+                 f"branch taken, between its issue and its wait")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -550,44 +595,75 @@ def main():
         "order and exp2 against exp, ~1e-6 of a weight)")
     Bm, Nm, dm = MATCH_SHAPE
     grid = gm._coords_grid_flat(*FEAT_HW, "cuda")
+    scale = dm ** -0.5
+
+    def k3_l2_bytes(B, N, M, d, dv):
+        """A model, not a measurement, of the bytes a K3 call reads through
+        L2, from the tile schedule: each 256-query CTA reads its batch row's
+        whole K and v, plus Q once and out once."""
+        tiles = -(-N // K3_TILE_Q)
+        return B * tiles * M * (2 * d + 4 * dv) + B * N * (2 * d + 4 * dv)
+
+    def k3_times(label, q, k, v, iters):
+        """Kernel, plain, SDPA (v cast to bf16 and padded to d: not the same
+        numerics) and bound times at one shape; the exp2 time and the L2
+        bytes, both modeled, only in the printed line."""
+        B, N, d = q.shape
+        M, dv = k.shape[1], v.shape[-1]
+        out = fa.flash_attention_streamed(q, k, v, scale)
+        ms = cuda_ms(lambda: fa.flash_attention_streamed(q, k, v, scale), iters)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_streamed_ref(q, k, v, scale), 3)
+        vpad = F.pad(v.to(torch.bfloat16), (0, d - dv))[:, None]
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], vpad), 5)
+        bound_ms, bound_by = bound(2 * B * N * M * (d + dv), nbytes(q, k, v, out))
+        exp_ms = 1e3 * B * N * M / (n_sm * SFU_PER_CLOCK_SM * max_sm_hz)
+        l2 = k3_l2_bytes(B, N, M, d, dv)
+        say("k3", f"time at {label} {[B, N, d]}, dv {dv}: kernel {ms:.3f} ms "
+            f"({2 * B * N * M * (d + dv) / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.3f} ms, "
+            f"scaled_dot_product_attention with v cast to bf16 and padded to "
+            f"{d} (not the same numerics) {lib_ms} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}: tensor cores); modeled, not measured: the "
+            f"{B * N * M:.3e} exp2 at {SFU_PER_CLOCK_SM}/clock/SM take "
+            f"{exp_ms:.3f} ms, and the tile schedule reads {l2 / 1e9:.2f} GB "
+            f"through L2 ({K3_TILE_Q}-query CTAs each reading their row's K "
+            f"and v; {l2 / (ms * 1e-3) / 1e12:.2f} TB/s at the kernel's time)")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=lib_ms)
+
     q, k = (normal(MATCH_SHAPE, torch.bfloat16) for _ in range(2))
     v = grid[None].expand(Bm, Nm, 2).contiguous()
-    scale = dm ** -0.5
-    out = fa.flash_attention_streamed(q, k, v, scale)
     k3_err = report("k3", f"matching {list(MATCH_SHAPE)} bf16, v = the "
-                    f"{FEAT_HW[0]}x{FEAT_HW[1]} pixel grid f32", out,
+                    f"{FEAT_HW[0]}x{FEAT_HW[1]} pixel grid f32",
+                    fa.flash_attention_streamed(q, k, v, scale),
                     fa.flash_attention_streamed_ref(q, k, v, scale),
                     fa.streamed_bounds(v))
-    ms = cuda_ms(lambda: fa.flash_attention_streamed(q, k, v, scale), 10)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_streamed_ref(q, k, v, scale), 3)
-    vpad = F.pad(v.to(torch.bfloat16), (0, dm - 2))[:, None]
-    lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
-        q[:, None], k[:, None], vpad), 5)
-    bound_ms, bound_by = bound(2 * Bm * Nm * Nm * (dm + 2), nbytes(q, k, v, out))
-    exp_ms = 1e3 * Bm * Nm * Nm / (n_sm * SFU_PER_CLOCK_SM * max_sm_hz)
-    k3 = dict(max_abs_err=k3_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=lib_ms, exp_bound_ms=exp_ms)
-    say("k3", f"time at matching {list(MATCH_SHAPE)}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, scaled_dot_product_attention with v cast "
-        f"to bf16 and padded to 128 (not the same numerics) {lib_ms} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}: tensor cores); the "
-        f"{Bm * Nm * Nm:.3e} exp2 at {SFU_PER_CLOCK_SM}/clock/SM take "
-        f"{exp_ms:.3f} ms")
-    del q, k, v, vpad, out
+    k3 = dict(max_abs_err=k3_err, **k3_times("matching", q, k, v, 10))
+    # peaked: keys a permutation of the queries times 4, each softmax nearly
+    # one-hot (out ~ v of the query's own key), so a v row taken from the
+    # wrong key tile moves the output by whole pixels; with v shifted by one
+    # key tile (the neighbouring ring slot) the bound must fail
+    perm = torch.randperm(Nm, generator=gen, device="cuda")
+    k = (q[:, perm].float() * 4).to(torch.bfloat16)
+    ref = fa.flash_attention_streamed_ref(q, k, v, scale)
+    report("k3", "peaked (keys = 4 x the queries permuted)",
+           fa.flash_attention_streamed(q, k, v, scale), ref, fa.streamed_bounds(v))
+    must_fail("k3", f"v shifted by one key tile ({K3_TILE_K} keys) on the peaked case",
+              fa.flash_attention_streamed(q, k, v.roll(K3_TILE_K, dims=1), scale),
+              ref, fa.streamed_bounds(v))
+    del q, k, v, ref
     torch.cuda.empty_cache()
     # propagation: 14 rows, q and k projected features, v the f32 flow
     q, k = (normal((14, Nm, dm), torch.bfloat16) for _ in range(2))
     v = normal((14, Nm, 2), torch.float32, scale=40.0)
-    out = fa.flash_attention_streamed(q, k, v, scale)
-    report("k3", f"propagation [14, {Nm}, {dm}] bf16, v = a flow f32", out,
+    report("k3", f"propagation [14, {Nm}, {dm}] bf16, v = a flow f32",
+           fa.flash_attention_streamed(q, k, v, scale),
            fa.flash_attention_streamed_ref(q, k, v, scale), fa.streamed_bounds(v))
-    ms = cuda_ms(lambda: fa.flash_attention_streamed(q, k, v, scale), 5)
-    k3["at_propagation"] = dict(
-        shape=[14, Nm, dm], ms=ms,
-        bound_ms=bound(2 * 14 * Nm * Nm * (dm + 2), nbytes(q, k, v, out))[0])
-    say("k3", f"time at propagation [14, {Nm}, {dm}]: kernel {ms:.3f} ms, "
-        f"bound {k3['at_propagation']['bound_ms']:.3f} ms")
-    del q, k, v, out
+    k3["at_propagation"] = dict(shape=[14, Nm, dm],
+                                **k3_times("propagation", q, k, v, 5))
+    del q, k, v
+    torch.cuda.empty_cache()
     # ragged keys, and the same keys with the tail left unmasked
     M = Nm + 37
     q = normal(MATCH_SHAPE, torch.bfloat16)
@@ -595,10 +671,10 @@ def main():
     v = torch.from_numpy(rng.uniform(0, 1440, size=(Bm, M, 2))
                          .astype(np.float32)).cuda()
     ref = fa.flash_attention_streamed_ref(q, k, v, scale)
-    report("k3", f"ragged M = {M} (a last tile of {M % 64} keys)",
+    report("k3", f"ragged M = {M} (a last tile of {M % K3_TILE_K} keys)",
            fa.flash_attention_streamed(q, k, v, scale), ref,
            fa.streamed_bounds(v))
-    pad = (-M) % 64
+    pad = (-M) % K3_TILE_K
     unmasked = fa.flash_attention_streamed(q, F.pad(k, (0, 0, 0, pad)),
                                            F.pad(v, (0, 0, 0, pad)), scale)
     must_fail("k3", f"the ragged tail unmasked ({pad} zero keys let in)",
@@ -1000,25 +1076,41 @@ def main():
     x, off = cases_a[4]  # the probe's perf shape [5760, 102], f32
     li = torch.arange(x.shape[1], device="cuda").clamp_max(9)
     idx = (off.long()[:, None] + li).clamp(0, x.shape[1] - 1)
-    t_bytes = nbytes(x, outs_a[4], off) / HBM_BYTES_S
-    k6a = dict(max_abs_err=0.0,
-               ms=cuda_ms(lambda: pg.lane_gather(x, off, 10), 50),
+    xt = cases_b[0]
+    probe_calls = {"K6a": lambda: pg.lane_gather(x, off, 10),
+                   "K6b": lambda: pg.minor_transpose(xt),
+                   "empty": lambda: launch_cost.empty_launch(x.get_device())}
+    host = {key: launch_cost.host_us(fn) for key, fn in probe_calls.items()}
+    device = device_us(probe_calls, {"K6a": "lane_gather_kernel",
+                                     "K6b": "minor_transpose_kernel",
+                                     "empty": "empty_kernel"})
+    empty_ms = cuda_ms(probe_calls["empty"], 50)
+    k6a = dict(max_abs_err=0.0, ms=cuda_ms(probe_calls["K6a"], 50),
                plain_ms=cuda_ms(lambda: pg.lane_gather_ref(x, off, 10), 50),
-               bound_ms=1e3 * t_bytes, bound_by="bytes",
-               library_ms=library_ms(lambda: torch.gather(x, 1, idx), 50))
-    x = cases_b[0]
-    k6b = dict(max_abs_err=0.0,
-               ms=cuda_ms(lambda: pg.minor_transpose(x), 50),
-               plain_ms=cuda_ms(lambda: pg.minor_transpose_ref(x), 50),
-               bound_ms=1e3 * nbytes(x, outs_b[0]) / HBM_BYTES_S,
+               bound_ms=1e3 * nbytes(x, outs_a[4], off) / HBM_BYTES_S,
                bound_by="bytes",
-               library_ms=library_ms(lambda: x.transpose(1, 2).contiguous(), 50))
+               library_ms=library_ms(lambda: torch.gather(x, 1, idx), 50),
+               host_us=host["K6a"], device_ms=device["K6a"] / 1e3,
+               empty_launch_ms=empty_ms)
+    k6b = dict(max_abs_err=0.0, ms=cuda_ms(probe_calls["K6b"], 50),
+               plain_ms=cuda_ms(lambda: pg.minor_transpose_ref(xt), 50),
+               bound_ms=1e3 * nbytes(xt, outs_b[0]) / HBM_BYTES_S,
+               bound_by="bytes",
+               library_ms=library_ms(lambda: xt.transpose(1, 2).contiguous(), 50),
+               host_us=host["K6b"], device_ms=device["K6b"] / 1e3,
+               empty_launch_ms=empty_ms)
     say("k6", f"time, lane_gather [5760, 102] f32: kernel {k6a['ms']:.4f} ms, "
         f"plain {k6a['plain_ms']:.4f} ms, torch.gather {k6a['library_ms']} ms, "
         f"bound {k6a['bound_ms']:.4f} ms; minor_transpose [8, 180, 16] f32: "
         f"kernel {k6b['ms']:.4f} ms, plain {k6b['plain_ms']:.4f} ms, "
         f".transpose(1, 2).contiguous() {k6b['library_ms']} ms, bound "
-        f"{k6b['bound_ms']:.4f} ms (both launch-bound at these sizes)")
+        f"{k6b['bound_ms']:.4f} ms (CUDA events over 50 launches back to back)")
+    say("k6", f"the launch path: an empty kernel {empty_ms:.4f} ms back to "
+        f"back; host time per wrapper call (1000 calls, no sync): lane_gather "
+        f"{host['K6a']:.2f} us, minor_transpose {host['K6b']:.2f} us, empty "
+        f"{host['empty']:.2f} us; device time alone (torch.profiler): "
+        f"lane_gather {device['K6a']:.2f} us, minor_transpose "
+        f"{device['K6b']:.2f} us, empty {device['empty']:.2f} us")
 
     runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
             "flow_raft": raft_counts, "probe": probe_counts}
@@ -1050,7 +1142,7 @@ def main():
         "source": f"prisma_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": launches[key], "launches_by_path": by_path[key], **row,
         "design": DESIGNS[key], "registers": compiled(key, regs),
-        **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2") else {})}
+        **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2", "K3") else {})}
         for name, key, src, replaces, row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

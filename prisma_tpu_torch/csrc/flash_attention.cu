@@ -24,7 +24,8 @@
 // many at d = 128. And every CTA reads its batch row's K and V again from L2: 1/TQ bytes
 // per operation, ~4 TB/s at d = 128 and the measured rate.
 //
-// Design of the bf16 kernels (FA3-shaped; Hopper's primitives as inline PTX, no CUTLASS):
+// Design of the bf16 kernels (FA3-shaped; Hopper's primitives as inline PTX in hopper.cuh,
+// shared with K3; no CUTLASS):
 // - one CTA per (batch row b, query tile) with a producer warpgroup, of which one warp
 //   works, and consumer warpgroups of 64 query rows each: two (128-row tiles, 384
 //   threads) at d = 128; three (192-row tiles, 512 threads) at d <= 64, where a tile's
@@ -65,15 +66,15 @@
 // tiles in shared memory, plain FMAs. The bias-free and region forms are one templated
 // body each, compiled into kernels of their own names so that a profiler tells them apart.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and S = Q·Kᵀ, ex2, tensor maps
+
 namespace {
+
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
 
@@ -115,125 +116,13 @@ __device__ __forceinline__ bool has_boundary(const Region& rg, int b, int n) {
   return rg.bands[2 * win] * rg.win_w < n || rg.bands[2 * win + 1] < rg.win_w;
 }
 
-// ------------------------------------------------------------ Hopper primitives (PTX)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-// One arrival that also makes the phase wait for `bytes` of TMA traffic.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// A TMA load of one box at (c0, c1, c2) of a 3-D tensor map into shared memory.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pins registers that an asynchronous wgmma reads or writes at this point of the program,
-// so that the compiler moves no access to them across a wgmma fence, commit or wait.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and stride byte offsets
-// (16-byte units), and the swizzle (1: 128-byte, 2: 64-byte). K-major swizzled operands
-// ignore the leading offset; MN-major ones step to the next 64 (32) columns with it.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t swizzle) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(swizzle) << 62);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The wgmma forms, with every accumulator register named (inline PTX takes no arrays):
-// S from shared memory at m64n128k16; P·V with A in registers at m64n{32,64,128}k16.
-// d = A·Bᵀ (first) or d += A·Bᵀ, m64n128k16: A [64, 16] and B [128, 16] both K-major in
-// shared memory. The first form writes d without reading it (wgmma's scale-d false).
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-      "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-      "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-      "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-      "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-      "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-      "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-      "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(0));
-}
+// The P·V forms of wgmma, A in registers at m64n{32,64,128}k16, with every accumulator
+// register named (inline PTX takes no arrays). S = Q·Kᵀ is hopper::issue_qk.
 
 // d += A·B, m64n32k16: A [64, 16] bf16 in registers, B [16, 32] MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -282,18 +171,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// 2^x in one SFU instruction (exp2f adds range fix-ups around the same ex2.approx).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The plan of the bf16 kernels for head dim D: warpgroups, registers and shared memory
 // (offsets from a 1024-byte aligned base: the 128-byte swizzle repeats every 8 rows of
 // 128 bytes).
 template <int D>
-struct Tiles {
+struct Tiles : Atoms<D> {
   // Consumer warpgroups of 64 query rows each. At d <= 64 a key tile's exp2 take the SM
   // as long as its products, so a third group keeps the tensor cores fed (FA3's choice).
   static constexpr int CONSUMERS = D <= 64 ? 3 : 2;
@@ -304,11 +186,7 @@ struct Tiles {
   static constexpr int PRODUCER_REGS = CONSUMERS == 2 ? 40 : 32;
   static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 232 : 160;
   static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS <= 65536, "registers");
-  static constexpr int ATOM = D < 64 ? D : 64;  // columns of one swizzle atom (one TMA box)
-  static constexpr int ROW_BYTES = ATOM * 2;    // 128 or 64: the swizzle's width
-  static constexpr int ATOMS = D / ATOM;
-  static constexpr uint32_t SWIZZLE = ROW_BYTES == 128 ? 1 : 2;  // descriptor code
-  static constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;          // one 8-row pattern
+  static constexpr int ATOMS = Atoms<D>::COUNT;
   static constexpr uint32_t Q_BYTES = TQ * D * 2;
   static constexpr uint32_t KV_BYTES = TK * D * 2;
   static constexpr uint32_t K_OFF = Q_BYTES;
@@ -316,11 +194,6 @@ struct Tiles {
   static constexpr uint32_t CODE_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr uint32_t BAR_OFF = CODE_OFF + STAGES * TK * sizeof(int);
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;  // + alignment slack
-
-  // Byte offset of columns [16·kk, 16·kk + 16) of a [rows, D] tile stored as atoms.
-  static __device__ __forceinline__ uint32_t k_offset(int kk, int rows) {
-    return (kk * 16 / ATOM) * rows * ROW_BYTES + (kk * 16 % ATOM) * 2;
-  }
 };
 
 // Barriers, 8 bytes each from BAR_OFF: Q full, then per stage K full, V full, K empty and
@@ -385,19 +258,13 @@ __device__ __forceinline__ void produce(const CUtensorMap& tq, const CUtensorMap
   }
 }
 
-// S = Q·Kᵀ for the key tile in slot st: issued, not waited on.
+// S = Q·Kᵀ for the key tile in slot st: issued, not waited on. The first product writes
+// S without reading it, so S is not live across P·V.
 template <int D>
 __device__ __forceinline__ void issue_s(float (&s)[TK / 2], uint32_t q_tile, uint32_t base,
                                         int st) {
   using T = Tiles<D>;
-  const uint32_t k_tile = base + T::K_OFF + st * T::KV_BYTES;
-  // the first product writes S without reading it, so S is not live across P·V
-  wgmma_ss_first(s, smem_desc(q_tile, 16, T::GROUP_BYTES, T::SWIZZLE),
-                 smem_desc(k_tile, 16, T::GROUP_BYTES, T::SWIZZLE));
-#pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss(s, smem_desc(q_tile + T::k_offset(kk, T::TQ), 16, T::GROUP_BYTES, T::SWIZZLE),
-             smem_desc(k_tile + T::k_offset(kk, TK), 16, T::GROUP_BYTES, T::SWIZZLE));
+  issue_qk<D>(s, q_tile, T::TQ, base + T::K_OFF + st * T::KV_BYTES);
 }
 
 // A consumer warpgroup: 64 query rows against every key tile. Thread (warp w, lane l)
@@ -441,7 +308,7 @@ __device__ __forceinline__ void consume(uint32_t base, const int* codes, bf16* _
   wgmma_fence();
   issue_s<D>(s, q_tile, base, 0);
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   reg_fence(s);
 
   for (int t = 0; t < ntiles; ++t) {
@@ -531,7 +398,7 @@ __device__ __forceinline__ void consume(uint32_t base, const int* codes, bf16* _
     }
     if (more) issue_s<D>(s, q_tile, base, (t + 1) % STAGES);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     reg_fence(acc);
     reg_fence(p);
     reg_fence(s);
@@ -703,49 +570,6 @@ flash_region_f32(const float* q, const float* k, const float* v, float* o, int n
   flash_f32_body<D, true>(q, k, v, o, n, tiles, scale_log2, rg);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, fetched once through the runtime (no -lcuda).
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D tensor map over a [batch, n, D] bf16 tensor whose box is one swizzle atom of
-// `rows` rows: rows past n of a batch row are out of bounds and read as zeros.
-template <int D>
-cudaError_t encode_tensor_map(CUtensorMap* map, const void* ptr, int batch, int n, int rows) {
-  using T = Tiles<D>;
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(n), cuuint64_t(batch)};
-  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(n) * D * 2};  // bytes
-  const cuuint32_t box[3] = {cuuint32_t(T::ATOM), cuuint32_t(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-      unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      T::ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // Blocks for `batch` rows of `n` queries in tiles of `rows`; false if they overflow int.
 bool grid_of(int batch, int n, int rows, int* tiles, int* blocks) {
   *tiles = (n + rows - 1) / rows;
@@ -767,9 +591,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     if (err != cudaSuccess) return err;
   }
   const int smem = T::SMEM;
+  static SmemCap fwd_cap, region_cap;  // one per kernel of this instantiation
   auto kernel = rg.mode == NONE ? flash_fwd_bf16<D> : flash_region_bf16<D>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = (rg.mode == NONE ? fwd_cap : region_cap)
+                              .raise(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, T::THREADS, smem, stream>>>(maps[0], maps[1], maps[2],
                                                static_cast<bf16*>(o), n, tiles, scale_log2, rg);

@@ -11,7 +11,9 @@
 // question arises here; they are ported as the functions they compute.
 //
 // What bounds them on this card: memory. Each reads its input once and writes its output
-// once. lane_gather: one thread per output value, rows walked by consecutive threads, so
+// once, and at the probe's sizes (a few MB) the launch path's host time exceeds the
+// device work (chip_smoke.py times an empty kernel through the same path beside them).
+// lane_gather: one thread per output value, rows walked by consecutive threads, so
 // reads and writes of a row are coalesced (the gathered columns of a row are a shifted
 // window, mostly contiguous). minor_transpose: 32x32 tiles through shared memory (a
 // column of padding against bank conflicts), so both the read of [W, T] rows and the
@@ -65,6 +67,9 @@ minor_transpose_kernel(const T* __restrict__ x, T* __restrict__ o, int w, int t)
   }
 }
 
+// Does nothing: the launch path's own cost, the floor under both kernels' times.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // x: [s, h] contiguous, off: [s] int32, o: [s, h]; dtype 0 = float32, 1 = bfloat16.
@@ -104,5 +109,11 @@ extern "C" int prisma_minor_transpose(const void* x, void* o, int b, int w, int 
   } else {
     return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// The empty kernel, one block of 32 threads, on `stream`.
+extern "C" int prisma_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own into
 `build/prisma_tpu_torch/lib<name>_<hash>.so` beside the package, at first use.
-The hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. No PyTorch headers are involved: a build takes
+The hash covers the source, every header of `csrc/` it includes (`#include
+"..."`, followed through the headers) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. No PyTorch headers are involved: a build takes
 seconds, not the minutes of `torch.utils.cpp_extension`. `build_all` starts
 one nvcc per source, all at once, and waits for them together.
 """
@@ -14,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,11 +46,31 @@ def sources() -> list[str]:
                   for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> list[str]:
+    """csrc/<name>.cu and the csrc/ headers it includes, directly or through
+    another header, in the order first met."""
+    todo, seen = [os.path.join(CSRC_DIR, name + ".cu")], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path), inc.decode()))
+    return seen
+
+
 def library_path(name: str) -> str:
-    """Where the build of csrc/<name>.cu lands (its hash names source and flags)."""
+    """Where the build of csrc/<name>.cu lands (its hash names the source, the
+    headers it includes and the flags)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest.update(f.read())
+    for path in _inputs(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from prisma_tpu_torch.ops.cuda import build
+from prisma_tpu_torch.ops.cuda import launch
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 MAX_STREAMED_DV = 4
@@ -81,17 +81,14 @@ def bf16_bounds(ref: torch.Tensor) -> tuple[float, float]:
 @functools.cache
 def _kernel():
     """The C entry point of K1/K2, built and loaded at first use."""
-    fn = build.load("flash_attention").prisma_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return launch.entry("flash_attention", "prisma_flash_attention",
+                        [p] * 4 + [i] * 5 + [p] * 2 + [i] * 2)
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
+def _check_operand(name: str, t: torch.Tensor, device: int) -> None:
+    if t.get_device() != device:
+        raise ValueError(f"{name} is on {t.device}, q on cuda:{device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
@@ -110,7 +107,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[0] == 0 or q.shape[1] == 0:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q.get_device())
 
 
 def _check_region(q, region_bands, win_w, ids):
@@ -122,7 +119,7 @@ def _check_region(q, region_bands, win_w, ids):
         if t is not None:
             if t.dtype != torch.int32:
                 raise TypeError(f"{name} must be int32, got {t.dtype}")
-            _check_operand(name, t, q.device)
+            _check_operand(name, t, q.get_device())
     if region_bands is not None:
         if region_bands.dim() != 2 or region_bands.shape[1] != 2:
             raise ValueError(f"region_bands must be [nwin, 2], got "
@@ -148,23 +145,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     region_bands ([nwin, 2] int32 (bh, bw) per window) + win_w, or ids ([B,
     N] int32): GMFlow's shifted-window bias, -100 between tokens of
     different regions (K2); neither: K1."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, region_bands=region_bands,
-                                   win_w=win_w, ids=ids)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, region_bands=region_bands,
+                                       win_w=win_w, ids=ids)
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v)
     mode, bands_ptr, ids_ptr, nwin = _check_region(q, region_bands, win_w, ids)
     out = torch.empty_like(q)
     B, N, d = q.shape
-    with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, N, d, _DTYPE_CODES[q.dtype], mode,
-                        bands_ptr, ids_ptr, nwin, win_w,
-                        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+    launch.launch("flash_attention", _kernel(), q.get_device(), q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, d,
+                  _DTYPE_CODES[q.dtype], mode, bands_ptr, ids_ptr, nwin, win_w)
     if mode == _MODE_NONE:
         flash_attention.launches += 1
     else:
@@ -221,11 +213,9 @@ def streamed_bounds(v: torch.Tensor) -> tuple[float, float]:
 @functools.cache
 def _streamed_kernel():
     """The C entry point of K3, built and loaded at first use."""
-    fn = build.load("flash_attention_streamed").prisma_flash_attention_streamed
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return launch.entry("flash_attention_streamed",
+                        "prisma_flash_attention_streamed",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float])
 
 
 def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor,
@@ -233,10 +223,11 @@ def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor,
     """q [B, N, d], k [B, M, d] contiguous, float32 or bfloat16, d in (32,
     64, 128); v [B, M, dv] contiguous float32 with 1 <= dv <= 4 -> [B, N, dv]
     f32. P·V in f32 with P unrounded. A bf16 v raises TypeError: upcast it
-    (exact) first."""
-    if q.device.type == "cpu":
-        return flash_attention_streamed_ref(q, k, v, scale)
-    if q.device.type != "cuda":
+    (exact) first. The kernel takes a positive, finite scale (a softmax
+    temperature); another raises ValueError."""
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_attention_streamed_ref(q, k, v, scale)
         raise ValueError(f"flash_attention_streamed runs on cuda or cpu, "
                          f"not {q.device}")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -258,17 +249,15 @@ def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor,
     if not 1 <= dv <= MAX_STREAMED_DV or B == 0 or N == 0 or M == 0:
         raise ValueError(f"need 1 <= dv <= {MAX_STREAMED_DV} and non-empty "
                          f"B, N, M; got {tuple(v.shape)}, N={N}")
+    if not 0 < scale < math.inf:
+        raise ValueError(f"the scale must be positive and finite, got {scale}")
+    device = q.get_device()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
-    out = torch.empty(B, N, dv, device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        err = _streamed_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), B, N, M, d, dv,
-                                 _DTYPE_CODES[q.dtype], float(scale),
-                                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_streamed kernel launch failed: "
-                           f"cudaError {err}")
+        _check_operand(name, t, device)
+    out = torch.empty((B, N, dv), device=q.device, dtype=torch.float32)
+    launch.launch("flash_attention_streamed", _streamed_kernel(), device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                  N, M, d, dv, _DTYPE_CODES[q.dtype], float(scale))
     flash_attention_streamed.launches += 1
     return out
 

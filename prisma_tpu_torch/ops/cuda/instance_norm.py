@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from prisma_tpu_torch.ops.cuda import build
+from prisma_tpu_torch.ops.cuda import launch
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,11 +57,9 @@ def bounds(ref: torch.Tensor) -> tuple[float, float]:
 @functools.cache
 def _kernel():
     """The C entry point, built and loaded at first use."""
-    fn = build.load("instance_norm").prisma_instance_norm_relu
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    i = ctypes.c_int
+    return launch.entry("instance_norm", "prisma_instance_norm_relu",
+                        [ctypes.c_void_p] * 2 + [i] * 3 + [ctypes.c_float, i])
 
 
 def instance_norm_relu(x: torch.Tensor, eps: float = EPS,
@@ -69,9 +67,9 @@ def instance_norm_relu(x: torch.Tensor, eps: float = EPS,
     """x [N, C, H, W] contiguous, float32 or bfloat16 -> the same shape and
     dtype: each (n, c) plane normalised by its own f32 mean and variance,
     then ReLU when relu."""
-    if x.device.type == "cpu":
-        return instance_norm_relu_ref(x, eps, relu)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return instance_norm_relu_ref(x, eps, relu)
         raise ValueError(f"instance_norm_relu runs on cuda or cpu, not {x.device}")
     if x.dim() != 4:
         raise ValueError(f"x must be [N, C, H, W], got {tuple(x.shape)}")
@@ -85,13 +83,9 @@ def instance_norm_relu(x: torch.Tensor, eps: float = EPS,
     if N * C == 0 or H * W == 0:
         raise ValueError(f"empty instance-norm input {tuple(x.shape)}")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), y.data_ptr(), N * C, H * W,
-                        _DTYPE_CODES[x.dtype], float(eps), int(relu),
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"instance_norm_relu kernel launch failed: "
-                           f"cudaError {err}")
+    launch.launch("instance_norm_relu", _kernel(), x.get_device(), x.data_ptr(),
+                  y.data_ptr(), N * C, H * W, _DTYPE_CODES[x.dtype], float(eps),
+                  int(relu))
     instance_norm_relu.launches += 1
     return y
 

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from prisma_tpu_torch.ops.cuda import build
+from prisma_tpu_torch.ops.cuda import launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -36,21 +36,17 @@ def minor_transpose_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _lib():
-    lib = build.load("probe_gather")
-    lib.prisma_lane_gather.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.prisma_minor_transpose.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.prisma_lane_gather.restype = ctypes.c_int
-    lib.prisma_minor_transpose.restype = ctypes.c_int
-    return lib
+def _entries():
+    """The C entries of csrc/probe_gather.cu: (lane gather, minor transpose).
+    Its third, an empty kernel, is `runtime/launch_cost.empty_launch`'s."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (launch.entry("probe_gather", "prisma_lane_gather",
+                         [p, p, p, ctypes.c_longlong, i, i, i]),
+            launch.entry("probe_gather", "prisma_minor_transpose", [p, p, i, i, i, i]))
 
 
 def _check(x: torch.Tensor, name: str, dim: int) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    """Raises the error that x earns (the slow path of a failed check)."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != dim or not x.is_contiguous() or x.numel() == 0:
@@ -60,43 +56,50 @@ def _check(x: torch.Tensor, name: str, dim: int) -> None:
 
 def lane_gather(x: torch.Tensor, off: torch.Tensor, taps: int) -> torch.Tensor:
     """x [S, H] float32 or bfloat16, off [S] int32 -> [S, H] of x's dtype."""
-    if off.device != x.device:
-        raise ValueError("x and off must lie on one device")
-    if x.device.type == "cpu":
-        return lane_gather_ref(x, off, taps)
-    _check(x, "lane_gather", 2)
-    S, H = x.shape
-    if off.dtype != torch.int32 or off.shape != (S,) or not off.is_contiguous():
-        raise ValueError(f"off must be a contiguous [{S}] int32")
-    if taps < 1:
-        raise ValueError(f"taps must be positive, got {taps}")
+    if not x.is_cuda:
+        if off.device != x.device:
+            raise ValueError("x and off must lie on one device")
+        if x.device.type == "cpu":
+            return lane_gather_ref(x, off, taps)
+        raise ValueError(f"lane_gather runs on cuda or cpu, not {x.device}")
+    # the checks in one condition, each a cheap attribute; a failure finds its
+    # message below
+    code = _DTYPE_CODES.get(x.dtype)
+    shape = x.shape
+    device = x.get_device()
+    if (code is None or len(shape) != 2 or not x.is_contiguous() or not x.numel()
+            or off.get_device() != device or off.dtype != torch.int32
+            or off.shape != shape[:1] or not off.is_contiguous() or taps < 1):
+        _check(x, "lane_gather", 2)
+        if off.get_device() != device:
+            raise ValueError("x and off must lie on one device")
+        if taps < 1:
+            raise ValueError(f"taps must be positive, got {taps}")
+        raise ValueError(f"off must be a contiguous [{shape[0]}] int32")
     o = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _lib().prisma_lane_gather(
-            x.data_ptr(), off.data_ptr(), o.data_ptr(), S, H, taps,
-            _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_gather kernel launch failed: cudaError {err}")
+    launch.launch("lane_gather", _entries()[0], device, x.data_ptr(),
+                  off.data_ptr(), o.data_ptr(), shape[0], shape[1], taps, code)
     lane_gather.launches += 1
     return o
 
 
 def minor_transpose(x: torch.Tensor) -> torch.Tensor:
     """x [B, W, T] float32 or bfloat16 -> [B, T, W]."""
-    if x.device.type == "cpu":
-        return minor_transpose_ref(x)
-    _check(x, "minor_transpose", 3)
-    B, W, T = x.shape
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return minor_transpose_ref(x)
+        raise ValueError(f"minor_transpose runs on cuda or cpu, not {x.device}")
+    code = _DTYPE_CODES.get(x.dtype)
+    shape = x.shape
+    if code is None or len(shape) != 3 or not x.is_contiguous() or not x.numel():
+        _check(x, "minor_transpose", 3)
+    B, W, T = shape
     if B > 65535 or W * T >= 2 ** 31:
         raise ValueError(f"minor_transpose takes B <= 65535 and W·T < 2^31, "
-                         f"got {tuple(x.shape)}")
-    o = torch.empty(B, T, W, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib().prisma_minor_transpose(
-            x.data_ptr(), o.data_ptr(), B, W, T, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"minor_transpose kernel launch failed: cudaError {err}")
+                         f"got {tuple(shape)}")
+    o = x.new_empty((B, T, W))
+    launch.launch("minor_transpose", _entries()[1], x.get_device(),
+                  x.data_ptr(), o.data_ptr(), B, W, T, code)
     minor_transpose.launches += 1
     return o
 

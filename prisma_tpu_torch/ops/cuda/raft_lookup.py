@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from prisma_tpu_torch.ops.cuda import build
+from prisma_tpu_torch.ops.cuda import launch
 
 RADIUS = 4
 MAX_LEVELS = 4
@@ -108,12 +108,9 @@ def bounds(ref: torch.Tensor) -> tuple[float, float]:
 @functools.cache
 def _kernel():
     """The C entry point, built and loaded at first use."""
-    fn = build.load("raft_lookup").prisma_raft_window_lookup
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return launch.entry("raft_lookup", "prisma_raft_window_lookup",
+                        [p, p, i, p, p, ctypes.c_longlong, i, i])
 
 
 def window_lookup(pyramid, coords: torch.Tensor, r: int = RADIUS) -> torch.Tensor:
@@ -122,9 +119,9 @@ def window_lookup(pyramid, coords: torch.Tensor, r: int = RADIUS) -> torch.Tenso
     levels·(2r+1)²] in the pyramid's dtype, blended in f32."""
     if any(vol.device != coords.device for vol in pyramid):
         raise ValueError("the pyramid and the coords must lie on one device")
-    if coords.device.type == "cpu":
-        return window_lookup_ref(pyramid, coords, r)
-    if coords.device.type != "cuda":
+    if not coords.is_cuda:
+        if coords.device.type == "cpu":
+            return window_lookup_ref(pyramid, coords, r)
         raise ValueError(f"window_lookup runs on cuda or cpu, not {coords.device}")
     if r != RADIUS:
         raise ValueError(f"the kernel is built for radius {RADIUS}, not {r}")
@@ -151,12 +148,8 @@ def window_lookup(pyramid, coords: torch.Tensor, r: int = RADIUS) -> torch.Tenso
     out = torch.empty(N, L * (2 * r + 1) ** 2, dtype=dtype, device=coords.device)
     vols = (ctypes.c_void_p * L)(*(vol.data_ptr() for vol in pyramid))
     dims = (ctypes.c_int * (2 * L))(*hw)
-    with torch.cuda.device(coords.device):
-        err = _kernel()(vols, dims, L, coords.data_ptr(), out.data_ptr(), N, r,
-                        _DTYPE_CODES[dtype],
-                        torch.cuda.current_stream(coords.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_lookup kernel launch failed: cudaError {err}")
+    launch.launch("window_lookup", _kernel(), coords.get_device(), vols, dims, L,
+                  coords.data_ptr(), out.data_ptr(), N, r, _DTYPE_CODES[dtype])
     window_lookup.launches += 1
     return out
 

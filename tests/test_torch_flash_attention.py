@@ -469,13 +469,26 @@ def test_gmflow_global_attend_matches_scan():
                                atol=5e-3)
 
 
-def emulate_streamed_kernel(q, k, v, scale, mask_tail=True, block_k=64):
-    """K3's arithmetic on the CPU: 64-key tiles, an online softmax in the
-    exp2 domain with f32 state, f32 unrounded P·V and l = Σp. mask_tail=False
-    lets the zero-filled keys of a ragged last tile in, as a kernel that
-    forgot the mask would."""
+# K3's tiles (csrc/flash_attention_streamed.cu): 128 keys a tile; in each
+# 64-row block of a 256-query CTA a row's four threads own the columns 8c +
+# 2t and 8c + 2t + 1 (t = 0..3) of every key tile
+STREAMED_BLOCK_K = 128
+
+
+def emulate_streamed_kernel(q, k, v, scale, mask_tail=True,
+                            block_k=STREAMED_BLOCK_K, v_from_next_tile=None):
+    """K3's arithmetic on the CPU: 128-key tiles; f32 scores and an online
+    softmax in the exp2 domain, the row max taken on the raw scores and
+    scaled once, p = 2^(s·scale·log2 e - m) (the scale folded before exp2);
+    f32 unrounded P·V; each of a row's four threads keeps its own partial l
+    = Σp and P·V over its columns, rescaled by the row's alpha, and the four
+    are joined at the end.
+
+    mask_tail=False lets the zero-filled keys of a ragged last tile in, as a
+    kernel that forgot the mask would. v_from_next_tile=t gives key tile t
+    the v rows of tile t + 1, as a ring whose v slot ran one tile ahead."""
     B, N, _ = q.shape
-    M = k.shape[1]
+    M, dv = k.shape[1], v.shape[-1]
     if not mask_tail:
         pad = (-M) % block_k
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
@@ -484,17 +497,23 @@ def emulate_streamed_kernel(q, k, v, scale, mask_tail=True, block_k=64):
     scale_log2 = scale * math.log2(math.e)
     qf = q.float()
     m = torch.full((B, N, 1), -math.inf)
-    l = torch.zeros(B, N, 1)
-    acc = torch.zeros(B, N, v.shape[-1])
-    for k0 in range(0, M, block_k):
-        s = torch.bmm(qf, k[:, k0:k0 + block_k].float().transpose(1, 2)) * scale_log2
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    l = torch.zeros(B, N, 4)
+    acc = torch.zeros(B, N, 4, dv)
+    for t, k0 in enumerate(range(0, M, block_k)):
+        s = torch.bmm(qf, k[:, k0:k0 + block_k].float().transpose(1, 2))
+        v0 = k0 + block_k if t == v_from_next_tile else k0
+        vt = v[:, v0:v0 + s.shape[-1]]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale_log2)
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.bmm(p, v[:, k0:k0 + block_k])
+        p = torch.exp2(s * scale_log2 - m_new)
+        cols = p.shape[-1]
+        pad = (-cols) % 8
+        pq = torch.nn.functional.pad(p, (0, pad)).view(B, N, -1, 4, 2)
+        vq = torch.nn.functional.pad(vt, (0, 0, 0, pad)).view(B, -1, 4, 2, dv)
+        l = l * alpha + pq.sum(dim=(2, 4))
+        acc = acc * alpha[..., None] + torch.einsum("bncth,bcthe->bnte", pq, vq)
         m = m_new
-    return acc / l
+    return acc.sum(dim=2) / l.sum(dim=2)[..., None]
 
 
 def assert_streamed_close(out, ref, v):
@@ -506,7 +525,7 @@ def assert_streamed_close(out, ref, v):
 
 def test_streamed_bounds_catch_an_unmasked_tail():
     """K3's card bounds have the power to see a fault: at the ragged M =
-    18360 + 37 (a last tile of 29 keys), the kernel's arithmetic emulated
+    18360 + 37 (a last tile of 93 keys), the kernel's arithmetic emulated
     on bf16 features passes them, and fails them with the tail unmasked."""
     rng = np.random.default_rng(4)
     M = 18360 + 37
@@ -519,6 +538,32 @@ def test_streamed_bounds_catch_an_unmasked_tail():
     with pytest.raises(AssertionError):
         assert_streamed_close(emulate_streamed_kernel(q, k, v, scale,
                                                       mask_tail=False), ref, v)
+
+
+def _peaked(rng, B, M, d, dv):
+    """Keys a permutation of the queries times 4 (exact in bf16): each
+    query's softmax is nearly one-hot on its own key, so out ~ v[j] with
+    perm[j] = i. Returns q, k, v and that v."""
+    q = torch.from_numpy(rng.normal(size=(B, M, d)).astype(np.float32)).to(torch.bfloat16)
+    perm = rng.permutation(M)
+    k = (q[:, perm].float() * 4).to(torch.bfloat16)
+    v = torch.from_numpy(rng.uniform(0, 1440, size=(B, M, dv)).astype(np.float32))
+    return q, k, v, v[:, np.argsort(perm)]
+
+
+def test_streamed_bounds_see_a_v_tile_from_the_neighbouring_slot():
+    """On peaked attention the card bounds see v taken from the wrong ring
+    slot: the kernel's arithmetic passes them, and the same arithmetic with
+    key tile 3 given tile 4's v rows fails them. (Near-uniform random scores
+    average such a fault out of sight.)"""
+    q, k, v, own = _peaked(np.random.default_rng(9), 1, 1024, 128, 2)
+    scale = 128 ** -0.5
+    ref = flash_attention_streamed_ref(q, k, v, scale)
+    assert float((ref - own).abs().max()) < 0.1  # one-hot: each query's own v
+    assert_streamed_close(emulate_streamed_kernel(q, k, v, scale), ref, v)
+    with pytest.raises(AssertionError):
+        assert_streamed_close(emulate_streamed_kernel(q, k, v, scale,
+                                                      v_from_next_tile=3), ref, v)
 
 
 def test_streamed_cpu_wrapper_takes_plain_version():
@@ -554,3 +599,58 @@ def test_streamed_kernel_matches_plain_on_card(B, N, M, d, dv, dtype):
     torch.cuda.synchronize()
     assert flash_attention_streamed.launches == before + 1
     assert_streamed_close(out, flash_attention_streamed_ref(q, k, v, scale), v)
+
+
+def _streamed_on_card(B, N, M, d, dv, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k = (torch.from_numpy(rng.normal(size=(B, n, d)).astype(np.float32))
+            .to("cuda", torch.bfloat16) for n in (N, M))
+    v = torch.from_numpy(rng.uniform(0, 1440, size=(B, M, dv))
+                         .astype(np.float32)).cuda()
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", [1, 2, 4])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("N", [1, 191, 193, 255, 257])
+@pytest.mark.parametrize("M", [1, 127, 129, 18360 + 37])
+def test_streamed_kernel_at_tile_edges_on_card(M, N, d, dv):
+    """The bf16 kernel's tile edges: one key, one short of a 128-key tile and
+    one over, the ragged matching key count; one query, and one either side
+    of 192 and of the 256-query CTA; every head dim; dv 1, 2 (one 16-byte
+    load for two keys) and 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _streamed_on_card(2, N, M, d, dv)
+    scale = d ** -0.5
+    out = flash_attention_streamed(q, k, v, scale)
+    assert_streamed_close(out, flash_attention_streamed_ref(q, k, v, scale), v)
+
+
+@pytest.mark.cuda
+def test_streamed_kernel_peaked_on_card():
+    """Peaked attention on the card: the kernel passes the bounds; fed v
+    shifted by one key tile it fails them, so the bounds would see a v slot
+    out of step with its K slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = (t.cuda() for t in _peaked(np.random.default_rng(9), 2, 4590, 128, 2))
+    scale = 128 ** -0.5
+    ref = flash_attention_streamed_ref(q, k, v, scale)
+    assert_streamed_close(flash_attention_streamed(q, k, v, scale), ref, v)
+    with pytest.raises(AssertionError):
+        assert_streamed_close(flash_attention_streamed(
+            q, k, v.roll(STREAMED_BLOCK_K, dims=1), scale), ref, v)
+
+
+@pytest.mark.cuda
+def test_streamed_kernel_rejects_a_scale_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _streamed_on_card(1, 10, 20, 64, 2)
+    for scale in (0.0, -0.125, math.inf):
+        with pytest.raises(ValueError, match="scale"):
+            flash_attention_streamed(q, k, v, scale)
