@@ -20,7 +20,8 @@ exits non-zero at once.
      LDGSTS and HMMA counts of the bf16 kernels of flash_attention.cu and
      flash_attention_streamed.cu (cuobjdump -sass): each must use wgmma
      (HGMMA > 0) and no legacy HMMA, and ptxas must serialize the wgmma of
-     none (C7514/C7515)
+     none (C7514/C7515); the same counts of raft_lookup.cu's kernels, which
+     must load with cp.async (LDGSTS > 0)
   3. k1: K1 flash attention against its plain version, seven shapes (the
      128-row tile edges at d=128 among them); kernel, plain, library call
      and bound at the ViT-L shape
@@ -48,11 +49,15 @@ exits non-zero at once.
      activations every kernel call held to its plain version, and the flow
      held within 2x the null distance of a plain path that rounds P as
      K1/K2 do
- 11. k5: K5 (RAFT's window lookup) against its plain version on the
+ 11. k5: K5 (RAFT's window lookup) equal to its plain version on the
      pyramid of seeded bf16 fmaps at the RAFT main shape, centres off the
-     plane and not finite among them, and on a ragged f32 pyramid; the
-     bounds shown to fail on three deliberate faults; kernel, plain,
-     grid_sample and bound times
+     plane and not finite among them, on a ragged f32 pyramid, a bf16 one
+     with an empty level and a bf16 one of odd widths whose 1001 pixels are
+     no multiple of the kernel's pixel group, at centres on both edges of
+     every plane and at every row start mod 8; the bounds shown to fail on
+     three deliberate faults; kernel, plain, grid_sample and bound times,
+     the kernel's occupancy; it must take no more than 3x its bound and no
+     longer than grid_sample
  12. raft-f32: a small-image RAFT (full widths, 4 iterations) in f32 with
      TF32 off on the card against the CPU
  13. raft: the RAFT path at full width (20 iterations): launches of K4 and
@@ -91,7 +96,6 @@ MATCH_SHAPE = (7, 18360, 128)  # global matching: 7 pairs, 102x180 tokens
 NORM_SHAPE = (14, 64, 408, 720)  # the backbone's largest instance norm
 ATOL_F32 = 2e-5  # f32 K1/K2 against the plain version: sums in another order
 RAFT_ITERS = 20
-K5_OFFSET = 40.0  # K5's test centres: the pixel grid plus up to this many px
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 # K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
 K3_TILE_Q, K3_TILE_K = 256, 128
@@ -107,7 +111,7 @@ KERNEL_SYMBOLS = {
 DESIGNS = {
     "K1": "wgmma+tma", "K2": "wgmma+tma",  # the bf16 kernels; f32 by FMA
     "K3": "wgmma+tma, two S in flight", "K4": "block-reduction",
-    "K5": "smem-staged-gather",
+    "K5": "cp.async 16-byte row chunks, two buffers of 16-pixel groups",
     "K6a": "per-value-gather", "K6b": "smem-tiled-transpose"}
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
@@ -212,7 +216,8 @@ def kernel_label(mangled):
             m = re.search(rf"\d{sym}(?:I(.+?)E)?E+v", mangled)
             if m:
                 args = [re.sub(r"^(Li|\d+)", "", a) for a in (m[1] or "").split("E")]
-                args = [{"f": "float", "j": "uint32", "t": "uint16"}.get(a, a)
+                args = [{"f": "float", "j": "uint32", "t": "uint16",
+                         "__nv_bfloat16": "bf16"}.get(a, a)
                         for a in args if a]
                 return f"{sym}<{', '.join(args)}>" if args else sym
     return None
@@ -286,7 +291,7 @@ def main():
     from prisma_tpu_torch.ops.cuda import probe_gather as pg
     from prisma_tpu_torch.ops.cuda import raft_lookup as rl
     from prisma_tpu_torch.ops.resize import resize2d
-    from prisma_tpu_torch.runtime import launch_cost
+    from prisma_tpu_torch.runtime import check_lookup, launch_cost
     from prisma_tpu_torch.runtime.config import RuntimeConfig
     from prisma_tpu_torch.weights import store
     import torch.nn.functional as F
@@ -366,6 +371,14 @@ def main():
             fail(f"ptxas serialized the wgmma of {serialized} kernel(s) of "
                  f"{name}.cu: a wgmma group's accumulator is touched, or a "
                  f"branch taken, between its issue and its wait")
+    k5_sass = sass_counts(libs["raft_lookup"])
+    say("build", "SASS of raft_lookup.cu: " + " | ".join(
+        f"{label} " + ", ".join(f"{op} {n}" for op, n in c.items())
+        for label, c in k5_sass.items()))
+    # raft_window_lookup_kernel<L, T> for L = 1..4 levels, T = float, bf16
+    if len(k5_sass) != 8 or any(c["LDGSTS"] == 0 for c in k5_sass.values()):
+        fail(f"K5's kernels must load their patch rows with cp.async (LDGSTS): "
+             f"{k5_sass}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -837,33 +850,34 @@ def main():
     torch.cuda.empty_cache()
 
     # 11. K5: RAFT's window lookup, on the pyramid of the RAFT main shape
-    say("k5", "tolerances: bf16 max |err| <= 1 ulp of max |ref|, mean <= "
+    say("k5", "tolerances: equal to the plain version value for value (the "
+        "same f32 blend in the same order on both sides, one cast); the bounds "
+        "of the fault checks: bf16 max |err| <= 1 ulp of max |ref|, mean <= "
         "2^-12 of mean |ref|; f32 max <= 1e-6 of max |ref|, mean <= 2^-20 of "
-        "mean |ref| (the same f32 blend in the same order on both sides, one "
-        "cast)")
-    B5 = 2 * (BATCH - 1)
-    f1, f2 = (normal((B5, 256, *FEAT_HW), torch.bfloat16) for _ in range(2))
-    pyr = raft.build_corr_pyramid(f1, f2, 4)
-    del f1, f2
-    N5 = B5 * FEAT_HW[0] * FEAT_HW[1]
-    grid5 = raft.coords_grid(B5, *FEAT_HW, "cuda").reshape(N5, 2)
-    coords = (grid5 + (torch.rand((N5, 2), generator=gen, device="cuda") * 2 - 1)
-              * K5_OFFSET).contiguous()
-    specials = torch.tensor([[1e6, 5.0], [-1e6, 5.0], [5.0, 1e6], [5.0, -1e6],
-                             [float("inf"), 5.0], [float("-inf"), 5.0],
-                             [5.0, float("nan")], [float("nan"), float("nan")]],
-                            device="cuda")
-    coords[:len(specials)] = specials
+        "mean |ref|")
+
+    def k5_equal(label, pyr, coords):
+        out = rl.window_lookup(pyr, coords)
+        torch.cuda.synchronize()
+        ref = rl.window_lookup_ref(pyr, coords)
+        max_err = report("k5", label, out, ref, rl.bounds(ref))
+        if not torch.equal(out, ref):
+            fail(f"k5 {label}: the kernel is not equal to its plain version")
+        far = ~torch.isfinite(coords).all(1) | (coords.abs() > 1e5).any(1)
+        if not bool((out[far] == 0).all()):
+            fail(f"k5 {label}: a centre at +-1e6, +-inf or NaN gave a nonzero "
+                 f"window")
+        return out, ref, max_err
+
+    pyr, coords = check_lookup.main_case(gen)
+    N5 = coords.shape[0]
     shapes = " ".join(f"{h}x{w}" for h, w in (v.shape[1:] for v in pyr))
-    out = rl.window_lookup(pyr, coords)
-    torch.cuda.synchronize()
-    ref = rl.window_lookup_ref(pyr, coords)
-    k5_err = report("k5", f"N = {N5} ({B5} x {FEAT_HW[0]}x{FEAT_HW[1]}), levels "
-                    f"{shapes} bf16, centres the grid +- {K5_OFFSET:.0f} px",
-                    out, ref, rl.bounds(ref))
-    if not bool((out[:len(specials)] == 0).all()):
-        fail("k5: a centre at +-1e6, +-inf or NaN gave a nonzero window")
-    say("k5", f"centres at +-1e6, +-inf and NaN: all-zero windows ok")
+    out, ref, k5_err = k5_equal(
+        f"N = {N5} ({check_lookup.IMAGES} x {FEAT_HW[0]}x{FEAT_HW[1]}), levels "
+        f"{shapes} bf16, centres the grid +- {check_lookup.OFFSET:.0f} px, "
+        f"{len(check_lookup.SPECIALS)} at +-1e6, +-inf or NaN", pyr, coords)
+    say("k5", "equal to the plain version; centres at +-1e6, +-inf and NaN: "
+        "all-zero windows ok")
     # the faults, on the first image's pixels
     M = FEAT_HW[0] * FEAT_HW[1]
     sub, cs, sref = [v[:M] for v in pyr], coords[:M], ref[:M]
@@ -884,67 +898,33 @@ def main():
     del sub, cs, sref, clamped, undivided, ref
     ms = cuda_ms(lambda: rl.window_lookup(pyr, coords), 20)
     plain_ms = cuda_ms(lambda: rl.window_lookup_ref(pyr, coords), 3)
-    # the reference's form (corr.py:30-43): grid_sample of each level at the
-    # 9x9 window, align_corners=True, zero padding; its grid must take the
-    # volume's dtype (bf16: not the same numerics)
-    d = torch.arange(-4, 5, dtype=torch.float32, device="cuda")
-    dy, dx = torch.meshgrid(d, d, indexing="ij")
-    delta = torch.stack([dy, dx], dim=-1)  # the reference's quirk: x slow
-    grids = []
-    for level, v in enumerate(pyr):
-        h, w = v.shape[1:]
-        g = coords[:, None, None].nan_to_num(0.0).clamp(-1e4, 1e4) / 2 ** level \
-            + delta
-        g = torch.stack([2 * g[..., 0] / (w - 1) - 1, 2 * g[..., 1] / (h - 1) - 1],
-                        dim=-1)
-        grids.append(g.to(v.dtype))
-    lib_ms = library_ms(lambda: [F.grid_sample(v[:, None], g, align_corners=True)
-                                 for v, g in zip(pyr, grids)], 5)
-    del grids
-    sectors = 0
-    for level, v in enumerate(pyr):
-        h, w = v.shape[1:]
-        x0, y0, _, _ = rl.clamped_centres(coords / 2 ** level, (h, w), 4)
-        xs, xe = (x0 - 4).clamp(0, w), (x0 + 6).clamp(0, w)
-        ys = y0[:, None] - 4 + torch.arange(10, device="cuda")
-        row = torch.arange(N5, device="cuda")[:, None] * (h * w) + ys * w
-        es = v.element_size()
-        first, last = (row + xs[:, None]) * es // 32, \
-            ((row + xe[:, None]) * es - 1) // 32
-        live = (ys >= 0) & (ys < h) & (xe > xs)[:, None]
-        sectors += int(torch.where(live, last - first + 1, 0).sum())
-    k5_bytes = 32 * sectors + nbytes(out, coords)
+    lib_ms = library_ms(check_lookup.grid_sample_lookup(pyr, coords), 5)
+    sectors, k5_bytes = check_lookup.touched_bytes(pyr, coords)
     k5_ops = 11 * out.numel()  # per tap 4 weights, 4 products, 3 sums (f32)
     t_ops, t_bytes = k5_ops / PEAK_F32, k5_bytes / HBM_BYTES_S
     k5 = dict(max_abs_err=k5_err, ms=ms, plain_ms=plain_ms,
               bound_ms=1e3 * max(t_ops, t_bytes),
               bound_by="operations" if t_ops >= t_bytes else "bytes",
-              library_ms=lib_ms, bound_bytes=k5_bytes)
-    say("k5", f"time at N = {N5}, four levels, bf16: kernel {ms:.3f} ms "
+              library_ms=lib_ms, bound_bytes=k5_bytes,
+              blocks_per_sm=rl.blocks_per_sm(torch.bfloat16, len(pyr)))
+    say("k5", f"time at N = {N5}, four levels, bf16: kernel {ms:.4f} ms "
         f"({k5_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of the bytes the windows "
-        f"touch), plain {plain_ms:.3f} ms, grid_sample (4 levels, bf16 grid) "
-        f"{lib_ms} ms, bound {k5['bound_ms']:.3f} ms ({k5['bound_by']}: "
-        f"{sectors} 32-byte sectors of in-range patch rows, {k5_bytes / 1e9:.3f} "
-        f"GB with the outputs and coords; the whole pyramid is "
-        f"{nbytes(*pyr) / 1e9:.2f} GB)")
-    del pyr, out, coords, grid5
+        f"touch, {100 * k5['bound_ms'] / ms:.1f}% of the bound), plain "
+        f"{plain_ms:.3f} ms, grid_sample (4 levels, bf16 grid) {lib_ms} ms, "
+        f"bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}: {sectors} 32-byte "
+        f"sectors of in-range patch rows, {k5_bytes / 1e9:.3f} GB with the "
+        f"outputs and coords; the whole pyramid is {nbytes(*pyr) / 1e9:.2f} "
+        f"GB); {k5['blocks_per_sm']} blocks of 256 threads an SM")
+    if ms > 3 * k5["bound_ms"]:
+        fail(f"k5: {ms:.4f} ms is over 3x its bound ({3 * k5['bound_ms']:.4f} ms)")
+    if lib_ms is not None and ms > lib_ms:
+        fail(f"k5: {ms:.4f} ms is slower than grid_sample's {lib_ms:.4f} ms")
+    del pyr, out, coords
     torch.cuda.empty_cache()
-    # ragged: odd levels in f32, and bf16 with an empty level
-    for hws, dtype in ((((41, 57), (20, 28), (10, 14), (5, 7)), torch.float32),
-                       (((6, 9), (3, 4), (1, 2), (0, 1)), torch.bfloat16)):
-        n = 3001
-        rag = [normal((n, h, w), dtype) for h, w in hws]
-        h0, w0 = hws[0]
-        c = torch.stack([torch.rand(n, generator=gen, device="cuda") * (w0 + 20) - 10,
-                         torch.rand(n, generator=gen, device="cuda") * (h0 + 20) - 10],
-                        dim=1)
-        c[:len(specials)] = specials
-        out = rl.window_lookup(rag, c)
-        ref = rl.window_lookup_ref(rag, c)
-        report("k5", f"[{n}] {str(dtype)[6:]}, levels "
-               + " ".join(f"{h}x{w}" for h, w in hws), out, ref, rl.bounds(ref))
-        if not bool((out[:len(specials)] == 0).all()):
-            fail("k5: a non-finite or far centre gave a nonzero window")
+    # ragged: odd levels in f32, bf16 with an empty level, and bf16 of odd
+    # widths at centres on every edge and row start
+    for label, rag, c in check_lookup.ragged_cases(gen):
+        k5_equal(label, rag, c)
 
     # 12. RAFT in f32 on the card (TF32 off) against the CPU
     cpu_raft = store.load_raft(cpu_rt)
@@ -1009,11 +989,13 @@ def main():
     with torch.inference_mode():
         ds = resize2d(x.float(), FLOW_HW, method="cubic").to(torch.bfloat16)
     calls = {"K4": [], "K5": []}
+    k5_equal_calls = []
 
     def lookup_checked(pyramid, coords, r=4):
         ref = rl.window_lookup_ref(pyramid, coords, r)
-        return ratios("K5", rl.window_lookup(pyramid, coords, r), ref,
-                      rl.bounds(ref))
+        out = rl.window_lookup(pyramid, coords, r)
+        k5_equal_calls.append(torch.equal(out, ref))
+        return ratios("K5", out, ref, rl.bounds(ref))
 
     paths = {
         "kernels": (lookup_checked, norm_checked),
@@ -1031,12 +1013,14 @@ def main():
                 raft.window_lookup, raft.instance_norm_relu = (
                     rl.window_lookup, inorm.instance_norm_relu)
     n_calls = {key: len(v) for key, v in calls.items()}
-    ok = n_calls == raft_step and all(r[2] for v in calls.values() for r in v)
+    ok = n_calls == raft_step and all(r[2] for v in calls.values() for r in v) \
+        and all(k5_equal_calls)
     say("raft", "pair 0, every K4 and K5 call against its plain version on the "
         "real activations, worst |err| / tol (max, mean): " + "; ".join(
             f"{key} x{len(v)} {max(r[0] for r in v):.3f}, "
             f"{max(r[1] for r in v):.3f}" for key, v in calls.items())
-        + f" {'ok' if ok else 'FAIL'}")
+        + f"; K5 equal to it in {sum(k5_equal_calls)} of "
+        f"{len(k5_equal_calls)} calls {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"a kernel disagrees with its plain version on the RAFT path's "
              f"activations ({n_calls} calls)")
@@ -1142,7 +1126,8 @@ def main():
         "source": f"prisma_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": launches[key], "launches_by_path": by_path[key], **row,
         "design": DESIGNS[key], "registers": compiled(key, regs),
-        **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2", "K3") else {})}
+        **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2", "K3") else {}),
+        **({"sass": k5_sass} if key == "K5" else {})}
         for name, key, src, replaces, row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from prisma_tpu_torch.ops.cuda import launch
+from prisma_tpu_torch.ops.cuda import build, launch
 
 RADIUS = 4
 MAX_LEVELS = 4
@@ -111,6 +111,17 @@ def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return launch.entry("raft_lookup", "prisma_raft_window_lookup",
                         [p, p, i, p, p, ctypes.c_longlong, i, i])
+
+
+def blocks_per_sm(dtype: torch.dtype, levels: int = MAX_LEVELS) -> int:
+    """Blocks of the kernel for `levels` levels of `dtype` that fit one SM of
+    the current CUDA device at once (its occupancy; 256 threads a block)."""
+    fn = build.load("raft_lookup").prisma_raft_window_lookup_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    blocks = fn(levels, _DTYPE_CODES[dtype])
+    if blocks <= 0:
+        raise RuntimeError(f"window_lookup occupancy query failed: cudaError {-blocks}")
+    return blocks
 
 
 def window_lookup(pyramid, coords: torch.Tensor, r: int = RADIUS) -> torch.Tensor:

@@ -18,8 +18,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from prisma_tpu_torch.ops.cuda.raft_lookup import (bounds, window_lookup,
+from prisma_tpu_torch.ops.cuda.raft_lookup import (bounds, clamped_centres,
+                                                   window_lookup,
                                                    window_lookup_ref)
+from prisma_tpu_torch.runtime.check_lookup import edge_centres
 
 R = 4
 # f32 on both sides; the JAX forms blend in another association (and the
@@ -49,6 +51,31 @@ def test_plain_matches_window_patch_lookup(hw):
     vol, c = _case(0, 300, *hw)
     ours = window_lookup_ref([torch.from_numpy(vol)], torch.from_numpy(c))
     np.testing.assert_allclose(ours.numpy(), _jax_patch(vol, c), atol=ATOL_F32)
+
+
+def _row_starts_mod8(hw, c):
+    """The start offsets mod 8 (values in a 16-byte bf16 chunk) of the
+    patch rows on the plane, for centres c at the scale of an [n, H, W]
+    level."""
+    H, W = hw
+    x0, y0, _, _ = clamped_centres(torch.from_numpy(c), hw, R)
+    ys = y0[:, None] - R + torch.arange(2 * R + 2)
+    start = (torch.arange(len(c))[:, None] * H * W + ys * W + x0[:, None] - R) % 8
+    return set(start[(ys >= 0) & (ys < H)].tolist())
+
+
+@pytest.mark.parametrize("hw", [(23, 37), (7, 5), (9, 8), (3, 1)])
+def test_plain_matches_window_patch_lookup_at_edges(hw):
+    """Centres at every corner the clamp keeps (both edges of the plane, the
+    tensor's first and last values) and patch rows at every start offset
+    mod 8, on odd widths and widths under one 16-byte bf16 chunk: the layout
+    that the kernel's chunked row loads must respect."""
+    c = edge_centres(300, hw, seed=8).numpy()
+    vol = np.random.default_rng(9).normal(size=(300, *hw)).astype(np.float32)
+    assert _row_starts_mod8(hw, c) == set(range(8))
+    ours = window_lookup_ref([torch.from_numpy(vol)], torch.from_numpy(c))
+    np.testing.assert_allclose(ours.numpy(), _jax_patch(vol, c), atol=ATOL_F32)
+    assert (ours[0] != 0).any() and (ours[-1] != 0).any()
 
 
 @pytest.mark.parametrize("hw", [(13, 23), (51, 90), (17, 129), (102, 180)])
@@ -179,13 +206,18 @@ def test_cpu_wrapper_takes_plain_version():
 
 
 def _card_case(N, hws, dtype, seed=0):
+    """N pixels (not a multiple of the kernel's 16-pixel group): the first
+    half at centres up to 10 px off the plane, the rest at `edge_centres`
+    (both edges, every row start mod 8, the tensor's last values); rows 1-6
+    far off the plane or not finite."""
     rng = np.random.default_rng(seed)
     pyr = [torch.from_numpy(rng.normal(size=(N, h, w)).astype(np.float32))
            .to("cuda", dtype) for h, w in hws]
     H, W = hws[0]
     c = np.stack([rng.uniform(-10, W + 10, N), rng.uniform(-10, H + 10, N)], -1)
-    c[:6] = [[1e6, 1.0], [-1e6, 2.0], [np.inf, 0.0], [np.nan, 1.0],
-             [2.0, -np.inf], [3e38, 3e38]]
+    c[N // 2:] = edge_centres(N - N // 2, hws[0], seed).numpy()
+    c[1:7] = [[1e6, 1.0], [-1e6, 2.0], [np.inf, 0.0], [np.nan, 1.0],
+              [2.0, -np.inf], [3e38, 3e38]]
     return pyr, torch.from_numpy(c.astype(np.float32)).cuda()
 
 
@@ -195,6 +227,11 @@ def _card_case(N, hws, dtype, seed=0):
     (((41, 57), (20, 28), (10, 14), (5, 7)), torch.float32),        # ragged
     (((6, 9), (3, 4), (1, 2), (0, 1)), torch.bfloat16),             # an empty level
     (((13, 21),), torch.float32),                                   # one level
+    (((23, 37), (11, 18), (5, 9), (2, 4)), torch.bfloat16),         # odd widths
+    (((23, 37), (11, 18), (5, 9)), torch.float32),
+    (((7, 5), (3, 2)), torch.bfloat16),                             # under one chunk
+    (((9, 8),), torch.bfloat16),                                    # one chunk wide
+    (((3, 1), (1, 1)), torch.float32),
 ])
 def test_kernel_matches_plain_on_card(hws, dtype):
     if not torch.cuda.is_available():
@@ -206,10 +243,11 @@ def test_kernel_matches_plain_on_card(hws, dtype):
     assert window_lookup.launches == before + 1
     ref = window_lookup_ref(pyr, c)
     assert out.shape == ref.shape and out.dtype == dtype
-    assert (out[:6] == 0).all()
+    assert (out[1:7] == 0).all()
     err = (out.float() - ref.float()).abs()
     max_tol, mean_tol = bounds(ref)
     assert float(err.max()) <= max_tol and float(err.mean()) <= mean_tol
+    assert torch.equal(out, ref)  # the same f32 blend in the same order
 
 
 @pytest.mark.cuda
