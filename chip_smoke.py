@@ -5,12 +5,15 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths through the bands' own entry points,
-with random weights from a seed: the Depth-Anything ViT-L video step on
-uint8 1080p frames at batch 8, and the GMFlow and RAFT flow steps on the
-same frames (7 bidirectional pairs at 810x1440, masks on), and the two probe
-kernels as their probe ran them. It holds every kernel against its plain
-PyTorch version. Each phase prints a line; a
+It drives the port's main paths through the bands' own entry points, with
+random weights from a seed: the Depth-Anything ViT-L video step on uint8
+1080p frames at batch 8, the GMFlow and RAFT flow steps on the same frames
+(7 bidirectional pairs at 810x1440, masks on), the two probe kernels as
+their probe ran them, and the steps of process.py's default video run on
+the same frames: metric Depth-Anything, the SOLOv2 mask with its SDF, and
+the three steps of one batch of the fused pipeline. It holds every kernel
+against its plain PyTorch version. The folder writers (decode, x264) are
+not driven: the card's machine is not known to have libav or colmap. Each phase prints a line; a
 failed phase ends the run with a non-zero exit. Without a CUDA device it
 exits non-zero at once.
 
@@ -22,9 +25,10 @@ exits non-zero at once.
      (HGMMA > 0) and no legacy HMMA, and ptxas must serialize the wgmma of
      none (C7514/C7515); the same counts of raft_lookup.cu's kernels, which
      must load with cp.async (LDGSTS > 0)
-  3. k1: K1 flash attention against its plain version, seven shapes (the
-     128-row tile edges at d=128 among them); kernel, plain, library call
-     and bound at the ViT-L shape
+  3. k1: K1 flash attention against its plain version, eight shapes (the
+     128-row tile edges at d=128 and the metric core's ragged 1037 tokens
+     among them); kernel, plain, library call and bound at the ViT-L shape
+     and at the metric core's
   4. f32: a tiny Depth-Anything in f32 with TF32 off on the card against
      the CPU
   5. main: the Depth-Anything path at full width (K1 launches counted,
@@ -69,6 +73,22 @@ exits non-zero at once.
      the probe's shapes in f32 and bf16, equal to their plain versions;
      times back to back, device time alone (torch.profiler), host µs per
      wrapper call, and an empty kernel through the same launch path
+ 15. metric-f32: a small metric Depth-Anything (vits core, the full bins
+     head) in f32 with TF32 off on the card against the CPU
+ 16. metric: the metric ViT-L step (392x518 core, bins head in f32) as
+     process.py runs it: 24 K1 launches per step, outputs checked, K1 held
+     to its plain version at every layer of one frame, that frame's depth
+     within 2x the null distance; frames/s and peak memory
+ 17. mask-f32: a small-image SOLOv2 (full R101 and head widths) in f32
+     with TF32 off on the card against the CPU: the slab on the same head
+     outputs (decayed scores within 1e-5), the whole network's slab matched
+     instance by instance, the valid count (> 0); the SDF green channel
+     equal on both sides
+ 18. mask: the mask step (SDF on) at 1080p, test scale 1333x750: outputs
+     checked, no kernel launched; frames/s and peak memory
+ 19. fused: the three steps the fused pipeline dispatches for one batch
+     (mask, metric depth, GMFlow over the 8-frame window), launches
+     counted (30 K1, 6 K2, 3 K3, 15 K4 a batch), frames/s
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -89,6 +109,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_SHAPE = (128, 2443, 64)  # ViT-L at 1080p, batch 8: [B*heads, tokens, d]
+METRIC_SHAPE = (128, 1037, 64)  # the metric core at 392x518: 28x37 patches + cls
 BATCH, FRAME_HW, TIMED_STEPS = 8, (1080, 1920), 3
 FLOW_HW, FEAT_HW = (810, 1440), (102, 180)  # 0.75x 1080p; its 1/8 features (/16 pad)
 WIN_SHAPE = (56, 4590, 128)    # 7 pairs doubled x 4 windows of 51x90 tokens, C=128
@@ -96,6 +117,8 @@ MATCH_SHAPE = (7, 18360, 128)  # global matching: 7 pairs, 102x180 tokens
 NORM_SHAPE = (14, 64, 408, 720)  # the backbone's largest instance norm
 ATOL_F32 = 2e-5  # f32 K1/K2 against the plain version: sums in another order
 RAFT_ITERS = 20
+FUSED_STEPS = 2
+MASK_F32_SCALE = (320, 192)  # SOLOv2's test-scale budget in the f32 check
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 # K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
 K3_TILE_Q, K3_TILE_K = 256, 128
@@ -279,12 +302,14 @@ def main():
     sys.path.insert(0, HERE)
     from prisma_tpu_torch.bands import (depth_anything_band, depth_base,
                                         flow_base, flow_gmflow_band,
-                                        flow_raft_band)
+                                        flow_raft_band, mask_band, multiband)
     from prisma_tpu_torch.models import depth_anything as da
     from prisma_tpu_torch.models import gmflow as gm
-    from prisma_tpu_torch.models import raft
+    from prisma_tpu_torch.models import raft, solov2, vit
+    from prisma_tpu_torch.models import zoedepth as zoe
     from prisma_tpu_torch.models.vit import ViTConfig
     from prisma_tpu_torch.ops import nn as pnn
+    from prisma_tpu_torch.ops import sdf
     from prisma_tpu_torch.ops.cuda import build
     from prisma_tpu_torch.ops.cuda import flash_attention as fa
     from prisma_tpu_torch.ops.cuda import instance_norm as inorm
@@ -399,6 +424,7 @@ def main():
         "row); f32 max and mean <= 2e-5 (f32 both sides, sums in another order)")
     k1 = {}
     for shape, dtype in ((MAIN_SHAPE, torch.bfloat16),
+                         (METRIC_SHAPE, torch.bfloat16),  # 8 rows past a tile
                          ((6, 100, 32), torch.float32),
                          ((6, 100, 32), torch.bfloat16),  # ragged bf16, d=32
                          ((4, 1024, 128), torch.bfloat16),
@@ -413,15 +439,19 @@ def main():
                else fa.flash_attention_ref)(q, k, v)
         max_err = report("k1", f"{list(shape)} {str(dtype)[6:]}", out, ref,
                          attn_tols(ref))
-        if shape == MAIN_SHAPE:
+        if shape in (MAIN_SHAPE, METRIC_SHAPE):
             B, N, d = shape
             ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
             plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
             q4, k4, v4 = (t.view(8, 16, N, d) for t in (q, k, v))
             lib_ms = library_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
             bound_ms, bound_by = bound(4 * B * N * N * d, nbytes(q, k, v, out))
-            k1 = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            timing = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            if shape == MAIN_SHAPE:
+                k1.update(timing)
+            else:
+                k1["at_metric_core"] = dict(shape=list(shape), **timing)
             say("k1", f"time at {list(shape)} bf16: kernel {ms:.3f} ms "
                 f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
                 f"{bound_ms / ms:.1%} of the bound), plain "
@@ -1096,8 +1126,247 @@ def main():
         f"lane_gather {device['K6a']:.2f} us, minor_transpose "
         f"{device['K6b']:.2f} us, empty {device['empty']:.2f} us")
 
+    # 15. metric Depth-Anything in f32 on the card (TF32 off) against the CPU
+    vits = vit.VIT_CONFIGS["vits"]
+    cpu_metric = zoe.init_params(zoe.build(vits, 64),
+                                 torch.Generator().manual_seed(0))
+    gpu_metric = copy.deepcopy(cpu_metric).cuda()
+    small = torch.from_numpy(rng.integers(0, 256, size=(2, 64, 96, 3),
+                                          dtype=np.uint8))
+    with torch.inference_mode():
+        d_cpu = zoe.metric_depth_anything_infer(cpu_metric, small,
+                                                img_size=(126, 168))
+        zero_counts()
+        d_gpu = zoe.metric_depth_anything_infer(gpu_metric, small.cuda(),
+                                                img_size=(126, 168)).cpu()
+    counts = read_counts()
+    err = float((d_gpu - d_cpu).abs().max())
+    tol = 1e-4 * float(d_cpu.abs().max())
+    ok = (counts == per_path(K1=vits.depth) and bool(torch.isfinite(d_gpu).all())
+          and err <= tol)
+    say("metric-f32", f"metric Depth-Anything (vits core, DPT 64, the full "
+        f"bins head: 64 bins, attractors 16/8/4/1) 2x64x96 at 126x168, f32: "
+        f"max |depth_gpu - depth_cpu| {err:.3e} m, tol {tol:.3e} m (1e-4 of "
+        f"the depth scale, max {float(d_cpu.abs().max()):.3f} m: f32 both "
+        f"sides, sums in another order); launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the f32 metric model on the card disagrees with the CPU")
+    del cpu_metric, gpu_metric
+
+    # 16. the metric Depth-Anything path at full width (process.py's depth)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metric_model, metric_infer, metric_flip = depth_anything_band.build_infer(
+        runtime, encoder="vitl", metric="outdoor")
+    metric_step = depth_base.make_step(metric_model, metric_infer, metric_flip,
+                                       need_depth=False)
+    metric_step(frames)  # warm-up
+    say("metric", f"metric Depth-Anything: ViT-L core (1024 wide, 24 blocks, "
+        f"16 heads) + DPT 256 at 392x518 (28x37 patches) in bf16, the bins "
+        f"head in f32, random weights: set-up and warm-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [metric_step(frames) for _ in range(TIMED_STEPS)]
+    elapsed = time.perf_counter() - t0
+    metric_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for out in outs:
+        heat, dmin, dmax = out["heat"], out["min"], out["max"]
+        if heat.shape != (BATCH, *FRAME_HW, 3) or heat.dtype != np.uint8:
+            fail(f"metric heat {heat.shape} {heat.dtype}")
+        if not (np.isfinite(dmin).all() and np.isfinite(dmax).all()
+                and (dmin <= dmax).all()):
+            fail(f"metric min/max not finite or not min <= max: {dmin} {dmax}")
+    expect = per_path(K1=24 * TIMED_STEPS)
+    if metric_counts != expect:
+        fail(f"metric launches in {TIMED_STEPS} steps: {metric_counts}, "
+             f"expected {expect}")
+    metric_ms = elapsed / TIMED_STEPS * 1e3
+    say("metric", f"{TIMED_STEPS} steps: heat {list(outs[0]['heat'].shape)} "
+        f"uint8, min <= max and finite per frame (frame 0: "
+        f"{outs[0]['min'][0]:.4f}-{outs[0]['max'][0]:.4f} m); launches "
+        f"{metric_counts} (24 K1 per step) ok")
+    say("metric", f"{BATCH * TIMED_STEPS / elapsed:.2f} frames/s "
+        f"({metric_ms:.1f} ms per batch-8 step, host clock, H2D and D2H "
+        f"included; K1 at [128, 1037, 64] {24 * k1['at_metric_core']['ms']:.1f}"
+        f" ms of it at its own time); peak memory {peak:.2f} GiB; on {card}")
+    layers.clear()
+    depth = {}
+    with torch.inference_mode():
+        for name, attn in (("k1", k1_checked),
+                           ("plain", fa.flash_attention_ref),
+                           ("plain_p_bf16", plain_p_bf16)):
+            pnn.flash_attention = attn
+            try:
+                depth[name] = metric_infer(metric_model, x1)
+            finally:
+                pnn.flash_attention = fa.flash_attention
+    ok = len(layers) == 24 and all(ok for _, _, ok in layers)
+    say("metric", f"frame 0, K1 against the plain version with P rounded to "
+        f"bf16 at each of {len(layers)} layers of the core: worst |err| / tol, "
+        f"max {max(r[0] for r in layers):.3f}, mean "
+        f"{max(r[1] for r in layers):.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("K1 disagrees with its plain version on the metric core's activations")
+    null_check("metric", "depth", depth["k1"], depth["plain"],
+               depth["plain_p_bf16"],
+               float(depth["plain"].max() - depth["plain"].min()))
+    del outs, depth
+    torch.cuda.empty_cache()
+
+    # 17. SOLOv2 in f32 on the card (TF32 off) against the CPU
+    small_cfg = solov2.SOLOv2Config(scale=MASK_F32_SCALE)
+    cpu_solo = solov2.init_params(solov2.build(small_cfg),
+                                  torch.Generator().manual_seed(0))
+    gpu_solo = copy.deepcopy(cpu_solo).cuda()
+    hw = (192, 256)
+    small = torch.from_numpy(rng.integers(0, 256, size=(1, *hw, 3),
+                                          dtype=np.uint8))
+    with torch.inference_mode():
+        img, img_hw = solov2.preprocess(small, scale=MASK_F32_SCALE)
+        cpu_heads = solov2.network(cpu_solo, img)
+        slab_cpu = solov2.get_results(*cpu_heads, img_hw, hw, small_cfg)
+        gpu_heads = solov2.network(gpu_solo, img.cuda())
+        head_err = max(float((g.cpu() - c).abs().max() / c.abs().max())
+                       for g, c in zip([*gpu_heads[0], *gpu_heads[1],
+                                        gpu_heads[2]],
+                                       [*cpu_heads[0], *cpu_heads[1],
+                                        cpu_heads[2]]))
+        slab_gpu = solov2.get_results(*gpu_heads, img_hw, hw, small_cfg)
+        # the slab on the CPU's own head outputs, moved to the card
+        same = solov2.get_results([t.cuda() for t in cpu_heads[0]],
+                                  [t.cuda() for t in cpu_heads[1]],
+                                  cpu_heads[2].cuda(), img_hw, hw, small_cfg)
+    same = {k: v.cpu() for k, v in same.items()}
+    slab_gpu = {k: v.cpu() for k, v in slab_gpu.items()}
+    n_valid = int(slab_cpu["valid"].sum())
+    valid = slab_cpu["valid"]
+    flipped = float((same["masks"][valid] != slab_cpu["masks"][valid])
+                    .float().mean()) if n_valid else 1.0
+    ok = (n_valid > 0 and head_err <= 1e-4
+          and torch.equal(same["valid"], valid)
+          and torch.equal(same["labels"][valid], slab_cpu["labels"][valid])
+          and float((same["scores"] - slab_cpu["scores"]).abs().max()) <= 1e-5
+          and float((same["probs"][valid] - slab_cpu["probs"][valid])
+                    .abs().max()) <= 1e-4
+          and flipped <= 1e-3)
+    matched = match_slabs(slab_gpu, slab_cpu)
+    ok = ok and matched is not None
+    say("mask-f32", f"SOLOv2 (R101, FPN 256, head 512, 80 classes) {hw[0]}x"
+        f"{hw[1]} at test scale {MASK_F32_SCALE}, f32: head outputs within "
+        f"{head_err:.2e} of their scale (tol 1e-4); {n_valid} valid instances "
+        f"of {valid.numel()}; the slab on the same head outputs: valid and "
+        f"labels equal, decayed scores within "
+        f"{float((same['scores'] - slab_cpu['scores']).abs().max()):.2e} (tol "
+        f"1e-5), probabilities of the valid within "
+        f"{float((same['probs'][valid] - slab_cpu['probs'][valid]).abs().max()) if n_valid else float('nan'):.2e}"
+        f" (tol 1e-4), {flipped:.2e} of their mask pixels flipped (tol 1e-3); "
+        f"the whole network's slab, each CPU instance matched to one on the "
+        f"card with its label, probabilities within 1e-4 and a decayed score "
+        f"within 5e-3 (a flipped mask pixel moves an IoU): "
+        f"{matched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the f32 SOLOv2 on the card disagrees with the CPU")
+    composite = (slab_cpu["masks"] & valid[:, None, None]).any(dim=0)
+    g_cpu = sdf.sdf_green_device(composite)
+    g_gpu = sdf.sdf_green_device(composite.cuda()).cpu()
+    ok = torch.equal(g_cpu, g_gpu) and bool(composite.any())
+    say("mask-f32", f"SDF green channel of the valid instances' union "
+        f"({float(composite.float().mean()):.3f} of the pixels): equal on "
+        f"both sides {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the SDF green channel on the card differs from the CPU's")
+    del cpu_solo, gpu_solo
+
+    # 18. the mask path at full width (process.py runs it with the SDF)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mask_step = mask_band.build_step(runtime, FRAME_HW,
+                                     mask_band.CONFIDENCE_THRESHOLD, sdf=True)
+    mask_step(frames)  # warm-up
+    mh, mw = solov2.test_scale(*FRAME_HW)
+    say("mask", f"SOLOv2 R101 + FPN + head, bf16 (group norms in f32), random "
+        f"weights, {BATCH} frames at {FRAME_HW[0]}x{FRAME_HW[1]} -> test scale "
+        f"{mh}x{mw} padded to {-(-mh // 32) * 32}x{-(-mw // 32) * 32}, SDF on: "
+        f"set-up and warm-up {time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [mask_step(frames) for _ in range(TIMED_STEPS)]
+    elapsed = time.perf_counter() - t0
+    mask_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for out in outs:
+        comp, green = out["composite"], out["green"]
+        if comp.shape != (BATCH, *FRAME_HW) or green.shape != comp.shape:
+            fail(f"mask composite {comp.shape}, green {green.shape}")
+        if not (np.isfinite(green).all() and green.min() >= 0
+                and green.max() <= 1 and (comp % 255 == 0).all()):
+            fail("mask green outside [0, 1] or composite not a sum of 255s")
+    if mask_counts != per_path():
+        fail(f"the mask step launched a kernel: {mask_counts}")
+    mask_ms = elapsed / TIMED_STEPS * 1e3
+    say("mask", f"{TIMED_STEPS} steps: composite {list(outs[0]['composite'].shape)}"
+        f" (kept pixels {float((outs[0]['composite'] > 0).mean()):.3f}), green "
+        f"in [0, 1]; no kernel of csrc/ on this path (plain torch, as the JAX "
+        f"package has no Pallas kernel here) ok")
+    say("mask", f"{BATCH * TIMED_STEPS / elapsed:.2f} frames/s ({mask_ms:.1f} "
+        f"ms per batch-8 step, host clock, H2D and D2H included; "
+        f"mask_solov2_sdf_1080p_fps_per_chip); peak memory {peak:.2f} GiB; "
+        f"on {card}")
+    del outs
+
+    # 19. the fused default run: the three steps run_fused dispatches for one
+    # batch (built by multiband.build_steps with process.py's default
+    # options), back to back, without its reader and writers
+    del mask_step, metric_step, metric_model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mask_step, metric_step, fused_flow, _ = multiband.build_steps(
+        runtime, *FRAME_HW,
+        depth_build={"metric": "outdoor", "encoder": "vitl"})
+
+    def fused_batch():
+        return mask_step(frames), metric_step(frames), fused_flow(frames)
+
+    fused_batch()  # warm-up
+    say("fused", f"multiband.build_steps (mask with SDF, metric ViT-L, "
+        f"GMFlow at scale 0.75), set-up and warm-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [fused_batch() for _ in range(FUSED_STEPS)]
+    elapsed = time.perf_counter() - t0
+    fused_counts = read_counts()
+    fused_expect = {"K1": 24 + 6, "K2": 6, "K3": 3, "K4": 15}
+    if fused_counts != per_path(**{k: n * FUSED_STEPS
+                                   for k, n in fused_expect.items()}):
+        fail(f"fused launches in {FUSED_STEPS} batches: {fused_counts}, "
+             f"expected {fused_expect} a batch")
+    for m_out, d_out, f_out in outs:
+        if (m_out["composite"].shape != (BATCH, *FRAME_HW)
+                or d_out["heat"].shape != (BATCH, *FRAME_HW, 3)
+                or f_out["fwd_rgb"].shape != (BATCH - 1, *FLOW_HW, 3)
+                or not np.isfinite(f_out["max_disp"]).all()):
+            fail("fused outputs of the wrong shape or not finite")
+    fused_ms = elapsed / FUSED_STEPS * 1e3
+    say("fused", f"{FUSED_STEPS} batches of mask (SDF) + metric depth + "
+        f"GMFlow ({BATCH - 1} pairs) on the same {BATCH} frames: launches "
+        f"{fused_counts} ({fused_expect} a batch) ok")
+    say("fused", f"{BATCH * FUSED_STEPS / elapsed:.2f} frames/s for the three "
+        f"bands together ({fused_ms:.1f} ms a batch, host clock, H2D and D2H "
+        f"included; the card's counterpart of measured_3band_fps_per_chip, "
+        f"with the host decode, the x264 encodes and the file writers left "
+        f"out; in steady state the loop runs 8/7 flow windows a batch); on "
+        f"{card}")
+    del outs, mask_step, metric_step, fused_flow
+    torch.cuda.empty_cache()
+
     runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
-            "flow_raft": raft_counts, "probe": probe_counts}
+            "flow_raft": raft_counts, "probe": probe_counts,
+            "depth_anything_metric": metric_counts, "mask": mask_counts,
+            "fused_3band": fused_counts}
     launches = {key: sum(c[key] for c in runs.values()) for key in counters}
     by_path = {key: {path: c[key] for path, c in runs.items()}
                for key in counters}
@@ -1132,6 +1401,35 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def match_slabs(ours, theirs):
+    """Match each valid instance of `theirs` to one of `ours` with its label,
+    mask probabilities within 1e-4 and a decayed score within 5e-3 (the
+    whole network's outputs part by a few ulp on two devices, which flips
+    a mask pixel at the threshold now and then, moves an IoU in matrix NMS
+    and can swap two instances of near scores). -> the worst (probability,
+    score) distances, or None if an instance has no match."""
+    if int(ours["valid"].sum()) != int(theirs["valid"].sum()):
+        return None
+    free = set(torch.nonzero(ours["valid"]).flatten().tolist())
+    worst = (0.0, 0.0)
+    for i in torch.nonzero(theirs["valid"]).flatten().tolist():
+        best = None
+        for j in free:
+            if ours["labels"][j] != theirs["labels"][i]:
+                continue
+            err = float((ours["probs"][j] - theirs["probs"][i]).abs().max())
+            if best is None or err < best[0]:
+                best = (err, j)
+        if best is None or best[0] > 1e-4:
+            return None
+        ds = abs(float(ours["scores"][best[1]] - theirs["scores"][i]))
+        if ds > 5e-3:
+            return None
+        free.remove(best[1])
+        worst = (max(worst[0], best[0]), max(worst[1], ds))
+    return f"probabilities within {worst[0]:.2e}, scores within {worst[1]:.2e}"
 
 
 def check_flow_outputs(outs):

@@ -1,9 +1,10 @@
-"""depth_anything band driver: relative Depth-Anything on one device
-(counterpart of prisma_tpu/bands/depth_anything_band.py).
+"""depth_anything band driver: Depth-Anything on one device, relative or
+metric (counterpart of prisma_tpu/bands/depth_anything_band.py).
 
-Reference: `bands/depth_anything.py` — the relative model (DPT head, flip=True
-on write). The metric model (ZoeDepth head, --metric indoor/outdoor) is not
-ported yet and raises.
+Reference: `bands/depth_anything.py` — the relative model (DPT head,
+flip=True on write) or the metric one (ZoeDepth head over the
+DepthAnythingCore, no flip; process.py passes --metric outdoor by default,
+process.py:53).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from prisma_tpu_torch.bands import depth_base
 from prisma_tpu_torch.bands.base import BandIO, resolve
 from prisma_tpu_torch.models import depth_anything as da
+from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.weights.store import load_depth_anything
 
@@ -25,14 +27,29 @@ BAND = "depth_anything"
 def build_infer(runtime: RuntimeConfig, encoder: str = "vitl",
                 metric: str = "none", img_size=None):
     """-> (model, infer, flip): the model on runtime's device in its compute
-    dtype, and infer(model, frames_u8) -> depth.
+    dtype (the metric model's bins head stays f32), and infer(model,
+    frames_u8) -> depth.
 
-    img_size: the lower-bound resize target (default 518), an int or a
-    one-element sequence; multiples of 14."""
+    img_size: the inference budget, multiples of 14: for the relative model
+    the lower-bound resize target (default 518), an int or a one-element
+    sequence; for the metric model the core size (default (392, 518)), one
+    int (square) or H W."""
     device = runtime.resolve_device()
-    _kind, model, _enc = load_depth_anything(runtime, encoder=encoder,
-                                             metric=metric)
+    kind, model, _enc = load_depth_anything(runtime, encoder=encoder,
+                                            metric=metric)
     dtype = runtime.resolve_dtype()
+    if kind == "metric":
+        model = model.to(device=device).cast_core(dtype)
+        if img_size is None:
+            size = (392, 518)
+        elif hasattr(img_size, "__len__"):
+            size = tuple(int(v) for v in img_size) if len(img_size) > 1 \
+                else (int(img_size[0]),) * 2
+        else:
+            size = (int(img_size),) * 2
+        infer = functools.partial(zoe.metric_depth_anything_infer,
+                                  img_size=size, compute_dtype=dtype)
+        return model, infer, False
     model = model.to(device=device, dtype=dtype)
     target = 518 if img_size is None else \
         int(img_size[0] if hasattr(img_size, "__len__") else img_size)
@@ -76,10 +93,11 @@ def main(argv=None):
                         choices=["vits", "vitb", "vitl"])
     parser.add_argument("--metric", type=str, default="none",
                         choices=["none", "indoor", "outdoor"],
-                        help="metric (ZoeDepth-head) model: not ported yet")
+                        help="use the metric (ZoeDepth-head) model")
     parser.add_argument("--img_size", type=int, nargs="+", default=None,
-                        help="inference budget: the relative resize target "
-                             "(default 518), a multiple of 14")
+                        help="inference budget: one int (relative resize "
+                             "target, default 518) or H W (metric core size, "
+                             "default 392 518); multiples of 14")
     args = parser.parse_args(argv)
     run_guarded(BAND, run, args.input, output=args.output,
                 subpath=args.subpath, encoder=args.encoder, metric=args.metric,

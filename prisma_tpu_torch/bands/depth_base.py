@@ -53,13 +53,17 @@ def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
     return step
 
 
-def _resume_state(output: str, segment_frames: int):
+def _resume_state(output: str, segment_frames: int,
+                  start_override: int | None = None):
     """-> (start_frame, mins, maxs, ledger_file) for frame-index resume.
 
     The resume index is the contiguous run of complete mp4 segments from a
     previous interrupted run; per-frame min/max come back from the ledger CSV
     kept next to the segments. A ledger shorter than the segments (lost
     buffered lines) restarts from scratch — correctness over savings.
+    start_override caps the resume point (the fused multi-band pipeline
+    resumes every band at the least of the bands' completed segments, so one
+    reader position serves all sinks).
     """
     import shutil
 
@@ -68,6 +72,8 @@ def _resume_state(output: str, segment_frames: int):
     seg_dir = output + ".segments"
     ledger_path = os.path.join(seg_dir, "values.csv")
     start = SegmentedVideoWriter.completed_frames(output, segment_frames)
+    if start_override is not None:
+        start = min(start, start_override)
     mins: list[float] = []
     maxs: list[float] = []
     if start:
@@ -92,10 +98,12 @@ def _resume_state(output: str, segment_frames: int):
 
 class DepthVideoSink:
     """Host epilogue of a depth video band: segmented mp4 writer + fsynced
-    min/max ledger + per-frame PNG/NPY artifacts + final CSVs/metadata."""
+    min/max ledger + per-frame PNG/NPY artifacts + final CSVs/metadata.
+    Shared by the sequential driver (run_video) and the fused multi-band
+    pipeline (bands/multiband.py), whose `start` caps the resume point."""
 
     def __init__(self, io: BandIO, width: int, height: int, fps: float,
-                 flip: bool, npy: bool):
+                 flip: bool, npy: bool, start: int | None = None):
         self.io = io
         self.flip = flip
         self.npy = npy
@@ -103,7 +111,7 @@ class DepthVideoSink:
         if self.seg:
             from prisma_tpu_torch.io.video import SegmentedVideoWriter
             self.start, self.mins, self.maxs, self.ledger = \
-                _resume_state(io.output, self.seg)
+                _resume_state(io.output, self.seg, start)
             self.writer = SegmentedVideoWriter(
                 width, height, fps, filename=io.output,
                 segment_frames=self.seg, start_frame=self.start,

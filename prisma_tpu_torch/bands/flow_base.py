@@ -281,19 +281,19 @@ class FlowVideoSink:
 
 
 def build_flow_step(model: torch.nn.Module, infer_pairs: Callable,
-                    scale: float, W: int, H: int, sink: FlowVideoSink,
-                    runtime: RuntimeConfig):
+                    scale: float, W: int, H: int, runtime: RuntimeConfig, *,
+                    backwards: bool, mask: bool, flo: bool = False,
+                    enc: bool = False):
     """Move the model to runtime's device in its compute dtype and build the
-    flow step for a (W, H) input stream, sized to what the sink consumes.
-    The HSV and consistency epilogues run in f32 (the step casts the flows
-    back)."""
+    flow step for a (W, H) input stream, sized to what the band's sink
+    consumes (FlowVideoSink's options; flo / enc: it writes .flo files /
+    16-bit PNGs). The HSV and consistency epilogues run in f32 (the step
+    casts the flows back)."""
     dh, dw = int(round(H * scale)), int(round(W * scale))
     model = model.to(device=runtime.resolve_device(),
                      dtype=runtime.resolve_dtype())
-    need_flow = bool(sink.flo_dir) or sink.backwards
-    need_masks = sink.mask or bool(sink.enc_dir)
-    return make_flow_step(model, infer_pairs, (dh, dw), need_masks,
-                          need_flow, need_enc=bool(sink.enc_dir))
+    return make_flow_step(model, infer_pairs, (dh, dw), mask or enc,
+                          flo or backwards, need_enc=enc)
 
 
 def run_flow_band(band: str, input_path: str, model, infer_pairs: Callable,
@@ -314,7 +314,9 @@ def run_flow_band(band: str, input_path: str, model, infer_pairs: Callable,
     W, H, fps = reader.width, reader.height, reader.fps
     sink = FlowVideoSink(io, W, H, fps, backwards=backwards, mask=mask,
                          subpath=subpath, subpath_mask=subpath_mask)
-    step = build_flow_step(model, infer_pairs, scale, W, H, sink, runtime)
+    step = build_flow_step(model, infer_pairs, scale, W, H, runtime,
+                           backwards=backwards, mask=mask, flo=bool(subpath),
+                           enc=bool(subpath_mask))
 
     pairs_per_batch = max(1, runtime.batch_size - 1)
     reader.skip(sink.start)

@@ -1,5 +1,4 @@
-"""Image read/write helpers (counterpart of prisma_tpu/io/image.py; the
-slice's two: read an RGB image, write a uint8 RGB image).
+"""Image read/write helpers (counterpart of prisma_tpu/io/image.py).
 
 cv2 is imported inside the functions, so that the port imports on machines
 without OpenCV; only reading and writing image files needs it.
@@ -8,6 +7,18 @@ without OpenCV; only reading and writing image files needs it.
 from __future__ import annotations
 
 import numpy as np
+
+
+def get_image_size(path: str) -> tuple[int, int]:
+    """(width, height) of an image file."""
+    import cv2
+    img = cv2.imread(path)
+    return img.shape[1], img.shape[0]
+
+
+def open_float_rgb(path: str) -> np.ndarray:
+    """Open image as float RGB in [0, 1]."""
+    return open_rgb(path).astype(np.float64) / 255.0
 
 
 def open_rgb(path: str) -> np.ndarray:
@@ -21,6 +32,13 @@ def open_rgb(path: str) -> np.ndarray:
     elif img.shape[2] == 4:
         img = cv2.cvtColor(img, cv2.COLOR_BGRA2BGR)
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def write_rgb(path: str, rgb: np.ndarray) -> None:
+    """Write float RGB in [0, 1] to an image file."""
+    import cv2
+    bgr = cv2.cvtColor((np.asarray(rgb) * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
+    cv2.imwrite(path, bgr)
 
 
 def write_rgb_u8(path: str, rgb_u8: np.ndarray) -> None:

@@ -174,6 +174,15 @@ def concat_videos(out_path: str, segment_paths: list[str]) -> None:
         raise IOError(f"concat error: {_last_error()}")
 
 
+def get_video_data(path: str):
+    """(width, height, fps, total_frames) — reference io.py:63-67 contract."""
+    r = VideoReader(path)
+    try:
+        return r.width, r.height, r.fps, r.num_frames
+    finally:
+        r.close()
+
+
 class VideoWriter:
     """x264 mp4 writer matching the reference VideoWriter's output settings.
 

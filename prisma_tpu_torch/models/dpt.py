@@ -80,11 +80,15 @@ def _fusion(p: FeatureFusionBlock, x, skip=None, size=None):
     return pnn.conv2d(p.out_conv, x)
 
 
-def dpt_head(head: DPTHead, features: list, ph: int, pw: int) -> torch.Tensor:
+def dpt_head(head: DPTHead, features: list, ph: int, pw: int,
+             return_features: bool = False):
     """features: [(patch_tokens [B, N, D], cls)] x4, shallow -> deep.
 
     Returns relative depth/disparity [B, 14*ph, 14*pw] (before the final
-    resize)."""
+    resize). With return_features=True also the intermediates the ZoeDepth
+    head reads (reference base_models/depth_anything.py:297-318): l4_rn, the
+    refinenet outputs r4..r1 and the 32-channel out_conv activation (the
+    ReLU after output_conv2[0]), all NCHW."""
     maps = []
     for i, (tokens, _cls) in enumerate(features):
         B, N, D = tokens.shape
@@ -107,6 +111,9 @@ def dpt_head(head: DPTHead, features: list, ph: int, pw: int) -> torch.Tensor:
     out = pnn.conv2d(s.output_conv1, path1, padding=1)
     out = resize2d_nchw(out, (ph * 14, pw * 14), method="linear",
                         align_corners=True)
-    out = F.relu(pnn.conv2d(s.output_conv2[0], out, padding=1))
-    out = F.relu(pnn.conv2d(s.output_conv2[2], out))
+    out_conv_act = F.relu(pnn.conv2d(s.output_conv2[0], out, padding=1))
+    out = F.relu(pnn.conv2d(s.output_conv2[2], out_conv_act))
+    if return_features:
+        return out[:, 0], {"out_conv": out_conv_act, "l4_rn": l4, "r4": path4,
+                           "r3": path3, "r2": path2, "r1": path1}
     return out[:, 0]

@@ -165,20 +165,10 @@ def init_params(model: RAFT, generator: torch.Generator) -> RAFT:
 # Encoders, NCHW
 # ---------------------------------------------------------------------------
 
-def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode batch norm as the JAX package computes it: folded in f32 to
-    a per-channel affine, scale = w / sqrt(var + eps), bias = b - mean·scale
-    (`torch_convert._fold_bn`), applied in x's dtype."""
-    scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
-    bias = bn.bias.float() - bn.running_mean.float() * scale
-    return (x * scale.to(x.dtype)[:, None, None]
-            + bias.to(x.dtype)[:, None, None])
-
-
 def _norm_relu(norm: nn.Module, x: torch.Tensor, relu: bool) -> torch.Tensor:
     if isinstance(norm, nn.InstanceNorm2d):
         return instance_norm_relu(x, relu=relu)
-    y = _batch_norm(norm, x)
+    y = pnn.batch_norm(norm, x)
     return F.relu(y) if relu else y
 
 

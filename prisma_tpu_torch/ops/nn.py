@@ -44,6 +44,16 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0,
                     padding=padding, groups=groups)
 
 
+def batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode batch norm as the JAX package computes it: folded in f32 to
+    a per-channel affine, scale = w / sqrt(var + eps), bias = b - mean·scale
+    (`torch_convert._fold_bn`), applied in x's dtype on NCHW."""
+    scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    bias = bn.bias.float() - bn.running_mean.float() * scale
+    return (x * scale.to(x.dtype)[:, None, None]
+            + bias.to(x.dtype)[:, None, None])
+
+
 def conv_transpose_blocky(p, x: torch.Tensor) -> torch.Tensor:
     """ConvTranspose2d with kernel_size == stride and no padding, weights
     [in, out, k, k]: each input pixel emits a k x k block (one einsum)."""

@@ -3,13 +3,20 @@
     python -m prisma_tpu_torch.runtime.profile_step [--band depth_anything]
         [--steps 5] [--out FILE]
 
+    --band: depth_anything, depth_anything_metric, mask, flow_gmflow or
+    flow_raft
+
 Builds the band's step as chip_smoke.py does (bf16, random weights from a
 seed, uint8 1080p frames at batch 8) and prints:
 
 - the host-clock time of whole steps (H2D and D2H included);
 - the device time of each stage on a batch already on the card, from CUDA
   events (depth_anything: input resize + normalize, ViT, DPT head, resize
-  back, heat; flow_gmflow: input resize, backbone, transformer, global
+  back, heat; depth_anything_metric: the same stages with the bins head
+  (f32) and the antialiased bicubic back to 1080p; mask: preprocess,
+  ResNet-101, FPN, head, the eight frames' slabs (top-K, dynamic convs,
+  matrix NMS, the upsample to 1080p), composite and SDF; flow_gmflow: input
+  resize, backbone, transformer, global
   matching, propagation, upsampler, the HSV and consistency epilogue;
   flow_raft: input resize, fnet + cnet, the correlation pyramid, the 20
   iterations' K5 lookup, motion encoder, GRU and flow head, mask head +
@@ -99,6 +106,93 @@ def depth_anything_step(runtime: RuntimeConfig, frames: np.ndarray):
                   "DPT head": t["model"] - t["vit"],
                   "resize back": t["infer"] - t["prepare"] - t["model"],
                   "heat epilogue": t["heat"]}
+
+
+def depth_anything_metric_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the batch already on the card}): the
+    metric model (ViT-L core at 392x518, bins head in f32), as process.py
+    runs it."""
+    from prisma_tpu_torch.bands import depth_anything_band, depth_base
+    from prisma_tpu_torch.models import dpt, vit
+    from prisma_tpu_torch.models import zoedepth as zoe
+    from prisma_tpu_torch.ops import encode as enc
+    from prisma_tpu_torch.ops.resize import resize2d_nchw
+
+    model, infer, flip = depth_anything_band.build_infer(
+        runtime, encoder="vitl", metric="outdoor")
+    step = depth_base.make_step(model, infer, flip, need_depth=False)
+    step(frames)  # warm-up
+    H, W = frames.shape[1:3]
+    x = torch.from_numpy(frames).cuda()
+    core = model.core.core
+    size = infer.keywords["img_size"]
+    ph, pw = (s // core.pretrained.cfg.patch_size for s in size)
+    dtype = runtime.resolve_dtype()
+
+    def prepare():
+        return zoe.prepare(x, size, dtype)
+
+    with torch.inference_mode():
+        img = prepare()
+        feats = vit.get_intermediate_layers(core.pretrained, img, n=4)
+        rel, cf = dpt.dpt_head(core.depth_head, feats, ph, pw,
+                               return_features=True)
+        metric = zoe.bins_head(model, rel, cf)
+        depth = infer(model, x)
+        stages = {
+            "input resize + normalize": cuda_ms(prepare),
+            "ViT-L core (24 K1)": cuda_ms(lambda: vit.get_intermediate_layers(
+                core.pretrained, img, n=4)),
+            "DPT head with features": cuda_ms(lambda: dpt.dpt_head(
+                core.depth_head, feats, ph, pw, return_features=True)),
+            "bins head (f32)": cuda_ms(lambda: zoe.bins_head(model, rel, cf)),
+            "antialiased bicubic to 1080p": cuda_ms(lambda: resize2d_nchw(
+                metric, (H, W), method="cubic_aa")),
+            "heat epilogue": cuda_ms(lambda: enc.depth_heat(depth, flip)),
+        }
+    return step, stages
+
+
+def mask_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the batch already on the card}): the
+    mask band's step with the SDF, as process.py runs it."""
+    from prisma_tpu_torch.bands import mask_band
+    from prisma_tpu_torch.models import resnet, solov2
+    from prisma_tpu_torch.ops.sdf import sdf_green_device
+
+    H, W = frames.shape[1:3]
+    model = mask_band.load_model(runtime)
+    step = mask_band._make_step(model, (H, W),
+                                mask_band.CONFIDENCE_THRESHOLD, sdf=True)
+    step(frames)  # warm-up
+    cfg = model.cfg
+    x = torch.from_numpy(frames).cuda()
+    dtype = runtime.resolve_dtype()
+    with torch.inference_mode():
+        img, hw = solov2.preprocess(x, dtype=dtype, scale=cfg.scale)
+        feats = resnet.forward(model.backbone, img)
+        fpn = solov2.fpn_forward(model.neck, feats)
+        kernels, cls, mask_feats = solov2.head_forward(model.mask_head, fpn, cfg)
+
+        def slabs():
+            return [solov2.get_results([k[b:b + 1] for k in kernels],
+                                       [c[b:b + 1] for c in cls],
+                                       mask_feats[b:b + 1], hw, (H, W), cfg)
+                    for b in range(x.shape[0])]
+
+        comp = torch.stack([o["masks"].any(dim=0) for o in slabs()])
+        stages = {
+            "preprocess (resize, normalize, pad)": cuda_ms(
+                lambda: solov2.preprocess(x, dtype=dtype, scale=cfg.scale)),
+            "ResNet-101": cuda_ms(lambda: resnet.forward(model.backbone, img)),
+            "FPN": cuda_ms(lambda: solov2.fpn_forward(model.neck, feats)),
+            "head (mask features, kernel and class branches)": cuda_ms(
+                lambda: solov2.head_forward(model.mask_head, fpn, cfg)),
+            f"{x.shape[0]} slabs (top-K, dynamic convs, matrix NMS, "
+            "upsample to 1080p)": cuda_ms(slabs, 3),
+            "SDF green channel": cuda_ms(lambda: sdf_green_device(comp), 3),
+        }
+    return step, stages
 
 
 def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
@@ -271,6 +365,8 @@ def flow_raft_step(runtime: RuntimeConfig, frames: np.ndarray):
 
 
 STEPS = {"depth_anything": (depth_anything_step, "frames"),
+         "depth_anything_metric": (depth_anything_metric_step, "frames"),
+         "mask": (mask_step, "frames"),
          "flow_gmflow": (flow_gmflow_step, "pairs"),
          "flow_raft": (flow_raft_step, "pairs")}
 

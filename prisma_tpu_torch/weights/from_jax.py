@@ -1,8 +1,10 @@
 """The JAX package's parameter trees as the port's state_dicts.
 
-`depth_anything_state_dict`, `gmflow_state_dict` and `raft_state_dict`
-invert `prisma_tpu.weights.torch_convert.convert_depth_anything`,
-`convert_gmflow` and `convert_raft`: they take the JAX parameters as numpy arrays and return the
+`depth_anything_state_dict`, `metric_depth_anything_state_dict`,
+`gmflow_state_dict`, `raft_state_dict` and `solov2_state_dict` invert
+`prisma_tpu.weights.torch_convert.convert_depth_anything`,
+`convert_metric_depth_anything`, `convert_gmflow`, `convert_raft` and
+`convert_solov2`: they take the JAX parameters as numpy arrays and return the
 reference checkpoint's keys and layouts, so that tests can run both packages
 on the same weights.
 """
@@ -95,6 +97,29 @@ def depth_anything_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def metric_depth_anything_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """{"core": {"vit", "dpt"}, "head": ...} (numpy leaves) -> the metric
+    checkpoint's `core.core.pretrained.*` / `core.core.depth_head.*` and
+    bins-head state_dict, f32 CPU tensors."""
+    sd = {"core.core." + k: v
+          for k, v in depth_anything_state_dict(params_np["core"]).items()}
+    head = params_np["head"]
+
+    def mlp(key, p):
+        _conv(sd, key + ".0", p["fc1"])
+        _conv(sd, key + ".2", p["fc2"])
+
+    _conv(sd, "conv2", head["conv2"])
+    mlp("seed_bin_regressor._net", head["seed_bin_regressor"])
+    mlp("seed_projector._net", head["seed_projector"])
+    for i, p in enumerate(head["projectors"]):
+        mlp(f"projectors.{i}._net", p)
+    for i, p in enumerate(head["attractors"]):
+        mlp(f"attractors.{i}._net", p)
+    mlp("conditional_log_binomial.mlp", head["conditional_log_binomial"])
+    return sd
+
+
 def gmflow_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
     """The JAX GMFlow tree (numpy leaves) -> the reference checkpoint's
     `backbone.*` / `transformer.*` / `feature_flow_attn.*` / `upsampler.*`
@@ -181,4 +206,50 @@ def raft_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
         _conv(sd, f"update_block.flow_head.{name}", p)
     _conv(sd, "update_block.mask.0", u["mask"]["conv1"])
     _conv(sd, "update_block.mask.2", u["mask"]["conv2"])
+    return sd
+
+
+def resnet_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX ResNet tree (folded batch norms) -> torchvision's keys, the
+    batch norms unfolded as `_unfold_bn` does."""
+    sd: dict = {}
+    _conv(sd, "conv1", params_np["stem"])
+    _unfold_bn(sd, "bn1", params_np["stem_bn"])
+    for si, stage in enumerate(params_np["stages"]):
+        for bi, b in enumerate(stage):
+            k = f"layer{si + 1}.{bi}."
+            for i in (1, 2, 3):
+                _conv(sd, k + f"conv{i}", b[f"conv{i}"])
+                _unfold_bn(sd, k + f"bn{i}", b[f"bn{i}"])
+            if "down" in b:
+                _conv(sd, k + "downsample.0", b["down"])
+                _unfold_bn(sd, k + "downsample.1", b["down_bn"])
+    return sd
+
+
+def solov2_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX SOLOv2 tree (numpy leaves) -> the mmdet checkpoint's
+    `backbone.*` / `neck.*` / `mask_head.*` state_dict, f32 CPU tensors."""
+    sd = {"backbone." + k: v
+          for k, v in resnet_state_dict(params_np["backbone"]).items()}
+    fpn = params_np["fpn"]
+    for i, (lat, out) in enumerate(zip(fpn["lateral"], fpn["out"])):
+        _conv(sd, f"neck.lateral_convs.{i}.conv", lat)
+        _conv(sd, f"neck.fpn_convs.{i}.conv", out)
+    head = params_np["head"]
+
+    def cgn(key, p):
+        _conv(sd, key + ".conv", p["conv"])
+        _norm(sd, key + ".gn", p["gn"])
+
+    mh = "mask_head."
+    for i, branch in enumerate(head["mask_feat"]["branches"]):
+        for j, p in enumerate(branch):
+            cgn(f"{mh}mask_feature_head.convs_all_levels.{i}.conv{j}", p)
+    cgn(mh + "mask_feature_head.conv_pred", head["mask_feat"]["pred"])
+    for name in ("kernel_convs", "cls_convs"):
+        for i, p in enumerate(head[name]):
+            cgn(f"{mh}{name}.{i}", p)
+    _conv(sd, mh + "conv_kernel", head["conv_kernel"])
+    _conv(sd, mh + "conv_cls", head["conv_cls"])
     return sd

@@ -6,8 +6,11 @@ Weights resolve from a local models/ directory (PRISMA_TPU_MODELS or
 RuntimeConfig.models_dir):
 
   depth_anything_{vits,vitb,vitl}14.pt   torch state_dict (HF mixin layout)
+  depth_anything_metric_depth_{indoor,outdoor}.pt
+                                         ZoeDepth over the ViT-L core, under 'model'
   gmflow_sintel-0c07dcb3.pth             torch checkpoint, state_dict under 'model'
   raft-sintel.pth                        torch state_dict, DataParallel `module.` keys
+  solov2_r101_fpn_3x_coco*.pth           mmdet checkpoint, state_dict under 'state_dict'
 
 With runtime.random_weights=True models initialize randomly from a seeded
 torch.Generator instead: same shapes, no files needed.
@@ -15,6 +18,7 @@ torch.Generator instead: same shapes, no files needed.
 
 from __future__ import annotations
 
+import glob
 import os
 
 import torch
@@ -22,7 +26,9 @@ import torch
 from prisma_tpu_torch.models import depth_anything as da
 from prisma_tpu_torch.models import gmflow as gm
 from prisma_tpu_torch.models import raft
+from prisma_tpu_torch.models import solov2
 from prisma_tpu_torch.models import vit as pvit
+from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 
 RANDOM_SEED = 0
@@ -50,13 +56,49 @@ def depth_anything_from_state_dict(sd: dict, cfg: pvit.ViTConfig,
     return model
 
 
+# buffers of the metric checkpoint that are functions of the bin count
+# (dist_layers.py:46-48); convert_metric_depth_anything reads none of them
+METRIC_DERIVED = ("conditional_log_binomial.log_binomial_transform.k_idx",
+                  "conditional_log_binomial.log_binomial_transform.K_minus_1")
+# the random metric core's DPT width per encoder (the JAX package's)
+METRIC_RANDOM_FEATURES = {"vits": 64, "vitb": 128, "vitl": 256}
+
+
+def metric_depth_anything_from_state_dict(sd: dict, cfg: pvit.ViTConfig,
+                                          device="cpu") -> zoe.MetricDepthAnything:
+    """Build a MetricDepthAnything whose DPT widths are the state_dict's and
+    load it with strict=True (the derived log-binomial buffers dropped)."""
+    sd = {k: v for k, v in sd.items() if k not in METRIC_DERIVED}
+    core = "core.core.depth_head."
+    features = sd[core + "scratch.layer1_rn.weight"].shape[0]
+    out_channels = tuple(sd[f"{core}projects.{i}.weight"].shape[0]
+                         for i in range(4))
+    model = zoe.build(cfg, features, out_channels, device=device)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
                         metric: str = "none"):
-    """-> ("relative", model (f32, CPU), encoder)."""
+    """-> (kind, model (f32, CPU), encoder) with kind "relative" or "metric".
+
+    Metric: the ZoeDepth-over-DepthAnythingCore checkpoint
+    depth_anything_metric_depth_{metric}.pt (reference depth_anything.py:
+    38-39), always ViT-L; random weights keep the asked encoder."""
     if metric != "none":
-        raise NotImplementedError(
-            "metric Depth-Anything (ZoeDepth head) is not ported yet: "
-            "ROADMAP.md queue 1, 'ZoeDepth and metric depth'")
+        if runtime.random_weights:
+            gen = torch.Generator().manual_seed(RANDOM_SEED)
+            model = zoe.build(pvit.VIT_CONFIGS[encoder],
+                              METRIC_RANDOM_FEATURES[encoder])
+            return "metric", zoe.init_params(model, gen), encoder
+        path = os.path.join(runtime.models_dir,
+                            f"depth_anything_metric_depth_{metric}.pt")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"checkpoint {path} not found; place the metric checkpoint "
+                "there or set runtime.random_weights=True")
+        return ("metric", metric_depth_anything_from_state_dict(
+            _load_torch_state_dict(path), pvit.VIT_CONFIGS["vitl"]), "vitl")
     cfg = pvit.VIT_CONFIGS[encoder]
     if runtime.random_weights:
         gen = torch.Generator().manual_seed(RANDOM_SEED)
@@ -109,4 +151,30 @@ def load_raft(runtime: RuntimeConfig,
             "runtime.random_weights=True for smoke runs")
     model = raft.build(cfg)
     model.load_state_dict(_load_torch_state_dict(path), strict=True)
+    return model
+
+
+def load_solov2(runtime: RuntimeConfig,
+                cfg: solov2.SOLOv2Config | None = None) -> solov2.SOLOv2:
+    """SOLOv2 R101, f32 on the CPU: random from the seed, or the mmdet
+    checkpoint `solov2_r101_fpn_3x_coco*.pth` (reference mask_mmdet.py:
+    27-28; the state_dict sits under 'state_dict') loaded with strict=True.
+    Batch-norm step counters, which a checkpoint may leave out and inference
+    never reads, are filled in."""
+    cfg = cfg or solov2.SOLOv2Config()
+    model = solov2.build(cfg)
+    if runtime.random_weights:
+        gen = torch.Generator().manual_seed(RANDOM_SEED)
+        return solov2.init_params(model, gen)
+    matches = sorted(glob.glob(os.path.join(runtime.models_dir,
+                                            "solov2_r101_fpn_3x_coco*.pth")))
+    if not matches:
+        raise FileNotFoundError(
+            f"no solov2_r101_fpn_3x_coco*.pth under {runtime.models_dir}; "
+            "place the mmdet checkpoint there or set runtime.random_weights=True")
+    sd = _load_torch_state_dict(matches[0])
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, v.new_zeros(()))
+    model.load_state_dict(sd, strict=True)
     return model

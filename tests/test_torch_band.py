@@ -6,7 +6,8 @@ as a reference-layout checkpoint that each package loads from disk) on one
 metadata.json must be equal; CSV and .npy values agree to 1e-4 of the depth
 scale (f32 sums in another order); decoded mp4 and PNG pixels agree as the
 x264 and float-bin-edge effects allow (bounds below). Also: the port's band
-imports with jax, cv2 and triton blocked, and its CLI runs an image.
+imports with jax, cv2 and triton blocked, and its CLI runs an image with
+the relative and the metric model.
 """
 
 import json
@@ -16,7 +17,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -102,9 +102,12 @@ def test_band_cli_runs_an_image(tmp_path):
                "--random_weights", "--img_size", "126", "-p", "--device", "cpu"])
     assert cv2.imread(str(tmp_path / "depth_anything.png")).shape == (48, 64, 3)
     assert os.path.getsize(tmp_path / "depth_anything.ply") > 0
-    with pytest.raises(NotImplementedError, match="metric"):
-        band.main(["-i", img, "--random_weights", "--metric", "indoor",
-                   "--force", "--device", "cpu"])
+    # the metric model (ZoeDepth head) runs too, without the flip
+    os.remove(tmp_path / "depth_anything.png")
+    band.main(["-i", img, "--encoder", "vits", "--dtype", "float32",
+               "--random_weights", "--metric", "indoor", "--img_size", "126",
+               "168", "--force", "--device", "cpu"])
+    assert cv2.imread(str(tmp_path / "depth_anything.png")).shape == (48, 64, 3)
 
 
 def test_port_imports_without_jax_cv2_or_triton():
@@ -117,6 +120,11 @@ def test_port_imports_without_jax_cv2_or_triton():
         "'prisma_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "import prisma_tpu_torch.bands.depth_anything_band\n"
+        "import prisma_tpu_torch.bands.mask_band, prisma_tpu_torch.bands.multiband\n"
+        "import prisma_tpu_torch.bands.rgba, prisma_tpu_torch.bands.camera_colmap_band\n"
+        "import prisma_tpu_torch.cli.process, prisma_tpu_torch.models.zoedepth\n"
+        "import prisma_tpu_torch.models.solov2, prisma_tpu_torch.ops.sdf\n"
+        "import prisma_tpu_torch.io.colmap_model\n"
         "assert 'prisma_tpu' not in sys.modules, 'imported the JAX package'\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
