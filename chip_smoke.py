@@ -9,9 +9,11 @@ It drives the port's main paths through the bands' own entry points, with
 random weights from a seed: the Depth-Anything ViT-L video step on uint8
 1080p frames at batch 8, the GMFlow and RAFT flow steps on the same frames
 (7 bidirectional pairs at 810x1440, masks on), the two probe kernels as
-their probe ran them, and the steps of process.py's default video run on
-the same frames: metric Depth-Anything, the SOLOv2 mask with its SDF, and
-the three steps of one batch of the fused pipeline. It holds every kernel
+their probe ran them, the steps of process.py's default video run on the
+same frames: metric Depth-Anything, the SOLOv2 mask with its SDF, and the
+three steps of one batch of the fused pipeline; then the BEiT-L depth
+family: PatchFusion on a 1080p frame at p49, ZoeD_N's video step, and an
+image's default run (mask, PatchFusion at r128). It holds every kernel
 against its plain PyTorch version. The folder writers (decode, x264) are
 not driven: the card's machine is not known to have libav or colmap. Each phase prints a line; a
 failed phase ends the run with a non-zero exit. Without a CUDA device it
@@ -89,6 +91,23 @@ exits non-zero at once.
  19. fused: the three steps the fused pipeline dispatches for one batch
      (mask, metric depth, GMFlow over the 8-frame window), launches
      counted (30 K1, 6 K2, 3 K3, 15 K4 a batch), frames/s
+ 20. pf-f32, zoed-f32: PatchFusion (BEiT-L at 4 blocks, 64 features) at
+     model size 64x96 on a 128x192 image, at p16 and r3, and ZoeD_N (BEiT-L
+     at 4 blocks) at img_size 64x96, in f32 with TF32 off on the card
+     against the CPU, within 1e-4 of the depth's scale, the same tile passes
+ 21. pf: PatchFusion at full width (two BEiT-L cores at 384x512, UNet, six
+     G2L levels; bf16, the bins heads f32) on one 1080p frame at p49 (49
+     tiles in batches of 8): s/frame, peak memory, the depth finite and in
+     [1e-3, 10] m; bf16 against the same run in f32 on the card, on the
+     same weights (within 2% of the depth's scale)
+ 22. zoed: ZoeD_N's video step (reflect pad, two passes, BEiT-L at
+     384x512, bins head f32) on the 8 frames: frames/s, peak memory, depths
+     in [1e-3, 10] m
+ 23. image: an image through process.py's band calls, in memory: rgba (no
+     device work), the mask with its SDF, PatchFusion at r128 (177 tiles)
+     and the depth PNG's heatmap: s/image, peak memory
+     Phases 20-23 run no kernel of csrc/ (the JAX package has no Pallas
+     kernel there): their launch counts must stay 0.
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -119,6 +138,9 @@ ATOL_F32 = 2e-5  # f32 K1/K2 against the plain version: sums in another order
 RAFT_ITERS = 20
 FUSED_STEPS = 2
 MASK_F32_SCALE = (320, 192)  # SOLOv2's test-scale budget in the f32 check
+MIN_DEPTH, MAX_DEPTH = 1e-3, 10.0  # the ZoeDepth config's metric range
+PF_SMALL_HW, PF_SMALL_IMAGE = (64, 96), (128, 192)  # PatchFusion's f32 check
+PF_TIMED = 2  # timed p49 frames
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 # K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
 K3_TILE_Q, K3_TILE_K = 256, 128
@@ -1363,10 +1385,13 @@ def main():
     del outs, mask_step, metric_step, fused_flow
     torch.cuda.empty_cache()
 
+    beit_counts = beit_paths(runtime, frames, card, rng, zero_counts,
+                             read_counts, per_path)
+
     runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
             "flow_raft": raft_counts, "probe": probe_counts,
             "depth_anything_metric": metric_counts, "mask": mask_counts,
-            "fused_3band": fused_counts}
+            "fused_3band": fused_counts, **beit_counts}
     launches = {key: sum(c[key] for c in runs.values()) for key in counters}
     by_path = {key: {path: c[key] for path, c in runs.items()}
                for key in counters}
@@ -1401,6 +1426,202 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def check_depth(phase, what, depth):
+    """A metric depth must be finite and inside [MIN_DEPTH, MAX_DEPTH]."""
+    lo, hi = float(depth.min()), float(depth.max())
+    ok = bool(torch.isfinite(depth).all()) and MIN_DEPTH <= lo and hi <= MAX_DEPTH
+    say(phase, f"{what}: finite, in [{lo:.4f}, {hi:.4f}] m within "
+        f"[{MIN_DEPTH}, {MAX_DEPTH}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what}: not finite or outside the configured depth range")
+
+
+def synced(fn):
+    """(fn(), host seconds) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def beit_paths(runtime, frames, card, rng, zero_counts, read_counts, per_path):
+    """Phases 20-23: the BEiT-L depth family and an image's process run.
+    -> {path: launch counts} (no kernel of csrc/ runs on these paths)."""
+    import functools
+
+    from prisma_tpu_torch.bands import (depth_base, depth_patchfusion_band,
+                                        depth_zoedepth_band, mask_band)
+    from prisma_tpu_torch.models import beit, zoed
+    from prisma_tpu_torch.models import patchfusion as pf
+    from prisma_tpu_torch.ops import encode as enc
+
+    counts = {}
+
+    def no_kernel(phase, key):
+        counts[key] = read_counts()
+        if counts[key] != per_path():
+            fail(f"{phase}: a kernel of csrc/ launched: {counts[key]}")
+
+    # 20. PatchFusion and ZoeD_N in f32 on the card (TF32 off) against the CPU
+    cfg = beit.BEiTConfig(depth=4)
+    cpu_pf = pf.init_params(pf.build(cfg, features=64, model_hw=PF_SMALL_HW),
+                            torch.Generator().manual_seed(0))
+    gpu_pf = copy.deepcopy(cpu_pf).cuda()
+    img = torch.from_numpy(rng.integers(0, 256, size=(*PF_SMALL_IMAGE, 3),
+                                        dtype=np.uint8))
+    res = pf.pick_resolution(*PF_SMALL_IMAGE)
+    crop = (res[0] // 4, res[1] // 4)
+    zero_counts()
+    for mode in ("p16", "r3"):
+        d_cpu = pf.infer(cpu_pf, img, mode=mode)
+        d_gpu = pf.infer(gpu_pf, img.cuda(), mode=mode).cpu()
+        err = float((d_gpu - d_cpu).abs().max())
+        tol = 1e-4 * float(d_cpu.abs().max())
+        tiles = [len(p) for p in pf.tile_passes(mode, res, crop)]
+        ok = bool(torch.isfinite(d_gpu).all()) and err <= tol
+        say("pf-f32", f"PatchFusion (BEiT-L 1024 wide, 4 blocks; 64 features) "
+            f"at {PF_SMALL_HW[0]}x{PF_SMALL_HW[1]}, {PF_SMALL_IMAGE[0]}x"
+            f"{PF_SMALL_IMAGE[1]} image -> {res[0]}x{res[1]}, {mode}: passes "
+            f"of {tiles} tiles (one tile_passes on both sides), max |depth_gpu "
+            f"- depth_cpu| {err:.3e} m, tol {tol:.3e} m (1e-4 of the depth "
+            f"scale, max {float(d_cpu.abs().max()):.3f} m: f32 both sides, "
+            f"sums in another order) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the f32 PatchFusion at {mode} on the card disagrees with the CPU")
+    del cpu_pf, gpu_pf
+    cpu_z = zoed.init_params(zoed.build(cfg), torch.Generator().manual_seed(1))
+    gpu_z = copy.deepcopy(cpu_z).cuda()
+    small = torch.from_numpy(rng.integers(0, 256, size=(2, 64, 96, 3),
+                                          dtype=np.uint8))
+    with torch.inference_mode():
+        d_cpu = zoed.infer(cpu_z, small, img_size=PF_SMALL_HW)
+        d_gpu = zoed.infer(gpu_z, small.cuda(), img_size=PF_SMALL_HW).cpu()
+    err = float((d_gpu - d_cpu).abs().max())
+    tol = 1e-4 * float(d_cpu.abs().max())
+    ok = bool(torch.isfinite(d_gpu).all()) and err <= tol
+    say("zoed-f32", f"ZoeD_N (BEiT-L 1024 wide, 4 blocks; DPT 256; the full "
+        f"bins head) 2x64x96 at img_size {PF_SMALL_HW}, pad and flip: max "
+        f"|depth_gpu - depth_cpu| {err:.3e} m, tol {tol:.3e} m (1e-4 of the "
+        f"depth scale) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the f32 ZoeD_N on the card disagrees with the CPU")
+    no_kernel("pf-f32", "f32_checks")
+    del cpu_z, gpu_z
+
+    # 21. PatchFusion at full width on a 1080p frame, p49 (the video mode)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, infer, _flip = depth_patchfusion_band.build_infer(runtime, mode="p49")
+    res = pf.pick_resolution(*FRAME_HW)
+    x1 = torch.from_numpy(frames[:1]).cuda()
+    with torch.inference_mode():
+        infer(model, x1)  # warm-up
+    say("pf", f"PatchFusion: two BEiT-L cores (1024 wide, 24 blocks, 16 "
+        f"heads, 769 tokens at 384x512) + MiDaS decoders, UNet and six G2L "
+        f"levels, bf16 (the bins heads, batch norms and BEiT bias tables "
+        f"f32), random weights; {FRAME_HW[0]}x{FRAME_HW[1]} -> crops of "
+        f"{res[0] // 4}x{res[1] // 4}, tile_batch 8: set-up and warm-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    times = []
+    with torch.inference_mode():
+        for _ in range(PF_TIMED):
+            depth, sec = synced(lambda: infer(model, x1))
+            times.append(sec)
+    no_kernel("pf", "depth_patchfusion_p49")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if depth.shape != (1, *FRAME_HW) or depth.dtype != torch.float32:
+        fail(f"PatchFusion depth {tuple(depth.shape)} {depth.dtype}")
+    check_depth("pf", "p49 depth, bf16", depth)
+    say("pf", f"p49 (16 + 12 + 12 + 9 = 49 tiles + the coarse pass): "
+        f"{', '.join(f'{t:.3f}' for t in times)} s a frame, mean "
+        f"{np.mean(times):.3f} s (host clock, synchronised, H2D and the "
+        f"1080p depth included); no kernel of csrc/; peak memory {peak:.2f} "
+        f"GiB; on {card}")
+    # the same run in f32 (TF32 off), on the same weights (the bf16 ones
+    # widened): what the compute dtype alone moves
+    f32_model = copy.deepcopy(model).float()
+    with torch.inference_mode():
+        d32, sec32 = synced(lambda: pf.infer(f32_model, x1[0], mode="p49"))
+    del f32_model
+    torch.cuda.empty_cache()
+    diff = (depth[0] - d32).abs()
+    scale = float(d32.abs().max())
+    ok = float(diff.max()) <= 0.02 * scale
+    say("pf", f"bf16 against the same p49 in f32 on the card, same weights "
+        f"({sec32:.2f} s): "
+        f"|diff| max {float(diff.max()):.3e} m, mean {float(diff.mean()):.3e} m "
+        f"({float(diff.max()) / scale:.2e} and {float(diff.mean()) / scale:.2e}"
+        f" of the depth scale {scale:.3f} m; tol 2e-2 of it) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("PatchFusion in bf16 is not within 2% of the f32 run")
+
+    # 22. ZoeD_N at full width: 1080p frames at batch 8, fused video step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zmodel, zinfer, zflip = depth_zoedepth_band.build_infer(runtime)
+    zstep = depth_base.make_step(zmodel, zinfer, zflip, need_depth=False)
+    zstep(frames)  # warm-up
+    say("zoed", f"ZoeD_N: BEiT-L (1024 wide, 24 blocks, 16 heads) + MiDaS "
+        f"decoder at 384x512 in bf16, the bins head in f32, random weights; "
+        f"reflect pad, two passes (plain, flipped): set-up and warm-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [zstep(frames) for _ in range(TIMED_STEPS)]
+    elapsed = time.perf_counter() - t0
+    no_kernel("zoed", "depth_zoedepth")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for out in outs:
+        if out["heat"].shape != (BATCH, *FRAME_HW, 3):
+            fail(f"ZoeD_N heat {out['heat'].shape}")
+        check_depth("zoed", "per-frame min and max",
+                    torch.from_numpy(np.concatenate([out["min"], out["max"]])))
+    say("zoed", f"{BATCH * TIMED_STEPS / elapsed:.2f} frames/s "
+        f"({elapsed / TIMED_STEPS * 1e3:.1f} ms per batch-8 step, host clock, "
+        f"H2D and D2H included); no kernel of csrc/; peak memory {peak:.2f} "
+        f"GiB; on {card}")
+    del zmodel, zstep, outs
+    torch.cuda.empty_cache()
+
+    # 23. an image through process.py's band calls, in memory: rgba (a
+    # file copy for an image: no device work), the mask with its SDF, then
+    # PatchFusion at r128 (the image default) and the depth PNG's heatmap
+    frame = frames[:1]
+    mstep = mask_band.build_step(runtime, FRAME_HW,
+                                 mask_band.CONFIDENCE_THRESHOLD, sdf=True)
+    mstep(frame)  # warm-up
+    image_infer = functools.partial(depth_patchfusion_band.infer_frames,
+                                    mode="r128", dtype=runtime.resolve_dtype())
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mout = mstep(frame)
+    with torch.inference_mode():
+        depth, sec = synced(lambda: image_infer(model, x1))
+        heat, _, _ = enc.depth_to_heatmap(depth[0], normalize=True, flip=False,
+                                          encode_range=False)
+    total = time.perf_counter() - t0
+    no_kernel("image", "image_r128")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if mout["composite"].shape != (1, *FRAME_HW) or heat.shape != (*FRAME_HW, 3):
+        fail(f"image outputs: mask {mout['composite'].shape}, heat "
+             f"{tuple(heat.shape)}")
+    check_depth("image", "r128 depth, bf16", depth)
+    say("image", f"rgba (no device work), mask + SDF (kept pixels "
+        f"{float((mout['composite'] > 0).mean()):.3f}), PatchFusion r128 (4 "
+        f"grid passes + 128 random tiles in passes of 8 = 177 tiles): "
+        f"{sec:.3f} s an image for the depth, {total:.3f} s for the three "
+        f"bands; heat {list(heat.shape)} {heat.dtype}; no kernel of csrc/; "
+        f"peak memory {peak:.2f} GiB; on {card}")
+    del model, mstep
+    torch.cuda.empty_cache()
+    return counts
 
 
 def match_slabs(ours, theirs):

@@ -19,6 +19,8 @@ from prisma_tpu_torch.utils import meta
 # holds each one's run(); a band of the JAX package missing here is not
 # ported yet
 BAND_MODULES = {"depth_anything": "depth_anything_band",
+                "depth_patchfusion": "depth_patchfusion_band",
+                "depth_zoedepth": "depth_zoedepth_band",
                 "flow_gmflow": "flow_gmflow_band",
                 "flow_raft": "flow_raft_band",
                 "mask_mmdet": "mask_band",

@@ -27,23 +27,29 @@ from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.io.writers import write_csv, write_depth, write_pcl
 from prisma_tpu_torch.ops import encode as enc
 
-# A video step: frames_u8 [B, H, W, 3] -> dict of host arrays with 'heat'
-#   [B, H, W, 3] u8, 'min' [B], 'max' [B], and optionally 'depth' [B, H, W] f32.
-VideoStep = Callable[[np.ndarray], dict]
+# A video step: (frames_u8 [B, H, W, 3], idx0 = the global index of
+#   frames[0]) -> dict of host arrays with 'heat' [B, H, W, 3] u8, 'min' [B],
+#   'max' [B], and optionally 'depth' [B, H, W] f32.
+VideoStep = Callable[..., dict]
 # An image infer: (frames_u8 [1, H, W, 3]) -> depth [1, H, W] f32
 ImageInfer = Callable[[np.ndarray], np.ndarray]
 
 
 def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
-              need_depth: bool) -> VideoStep:
-    """The shared depth video step: infer(model, frames) + the per-frame
-    normalize/flip/heatmap epilogue, on the model's device."""
+              need_depth: bool, fused: bool = True) -> VideoStep:
+    """The shared depth video step: infer + the per-frame
+    normalize/flip/heatmap epilogue, on the model's device.
+
+    fused: infer(model, frames) is one model call over the batch
+    (depth_anything, zoedepth); otherwise infer(model, frames, idx0) takes
+    the global index of the batch's first frame too, for the tile and
+    ensemble drivers (patchfusion; marigold seeds by it)."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
-    def step(frames: np.ndarray) -> dict:
+    def step(frames: np.ndarray, idx0: int = 0) -> dict:
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
-        depth = infer(model, x)
+        depth = infer(model, x) if fused else infer(model, x, idx0)
         heat, dmin, dmax = enc.depth_heat(depth, flip)
         out = {"heat": heat, "min": dmin, "max": dmax}
         if need_depth:
@@ -181,7 +187,7 @@ def run_video(io: BandIO, step: VideoStep, flip: bool,
     for frames, valid in reader.batches(io.runtime.batch_size,
                                         pad_to_full=True):
         with prof.stage("device_step"):
-            out = step(frames)
+            out = step(frames, idx0=sink.idx)
         sink.emit(out, valid)
     n_done = sink.idx - sink.start
     sink.close()

@@ -82,23 +82,35 @@ class _Core(nn.Module):
         self.core = model
 
 
+# the bins head's modules, at the top level of a checkpoint's model
+HEAD_MODULES = ("conv2", "seed_bin_regressor", "seed_projector", "projectors",
+                "attractors", "conditional_log_binomial")
+
+
+def add_bins_head(model: nn.Module, features: int,
+                  cfg: ZoeDepthConfig) -> None:
+    """Give `model` the bins head's modules at the checkpoints' top-level
+    names, over a core of `features` channels, and its config as `cfg`."""
+    e, c = cfg.bin_embedding_dim, features
+    per_attr = 2 if cfg.bin_centers_type == "normed" else 1
+    model.cfg = cfg
+    model.conv2 = nn.Conv2d(c, c, 1)
+    model.seed_bin_regressor = _Net(c, 256, cfg.n_bins)
+    model.seed_projector = _Net(c, 128, e)
+    model.projectors = nn.ModuleList(_Net(c, 128, e) for _ in range(4))
+    model.attractors = nn.ModuleList(_Net(e, 128, n * per_attr)
+                                     for n in cfg.n_attractors)
+    model.conditional_log_binomial = ConditionalLogBinomial(
+        cfg.midas_out_channels + 1 + e)
+
+
 class MetricDepthAnything(nn.Module):
     def __init__(self, vit_cfg: vit.ViTConfig, features: int = 256,
                  out_channels=dpt.DPT_OUT_CHANNELS,
                  cfg: ZoeDepthConfig = ZoeDepthConfig()):
         super().__init__()
-        self.cfg = cfg
         self.core = _Core(da.DepthAnything(vit_cfg, features, out_channels))
-        e, c = cfg.bin_embedding_dim, features
-        per_attr = 2 if cfg.bin_centers_type == "normed" else 1
-        self.conv2 = nn.Conv2d(c, c, 1)
-        self.seed_bin_regressor = _Net(c, 256, cfg.n_bins)
-        self.seed_projector = _Net(c, 128, e)
-        self.projectors = nn.ModuleList(_Net(c, 128, e) for _ in range(4))
-        self.attractors = nn.ModuleList(_Net(e, 128, n * per_attr)
-                                        for n in cfg.n_attractors)
-        self.conditional_log_binomial = ConditionalLogBinomial(
-            cfg.midas_out_channels + 1 + e)
+        add_bins_head(self, features, cfg)
 
     def cast_core(self, dtype: torch.dtype) -> "MetricDepthAnything":
         """The core in dtype; the bins head stays f32."""
@@ -195,34 +207,46 @@ def conditional_log_binomial(p: ConditionalLogBinomial, x, cond,
     return torch.softmax(y / temp[:, None], dim=1)
 
 
-def bins_head(model: MetricDepthAnything, rel_depth: torch.Tensor,
+def bins_head(model: nn.Module, rel_depth: torch.Tensor,
               core_feats: dict) -> torch.Tensor:
     """The metric head over the core's features, in f32.
 
     rel_depth [B, h, w]; core_feats: out_conv [B, 32, h, w], l4_rn, r4..r1
     (NCHW), as dpt_head(return_features=True) gives them. Returns metric
     depth [B, h, w] at the out_conv resolution."""
-    cfg = model.cfg
     feats = {k: v.float() for k, v in core_feats.items()}
     btlnck = pnn.conv2d(model.conv2, feats["l4_rn"])
+    hw = feats["out_conv"].shape[-2:]
+    rel_cond = resize2d_nchw(rel_depth.float()[:, None], hw, method="linear",
+                             align_corners=True)
+    return bins_from_bottleneck(model, btlnck,
+                                [feats[k] for k in ("r4", "r3", "r2", "r1")],
+                                feats["out_conv"], rel_cond)
+
+
+def bins_from_bottleneck(model: nn.Module, btlnck: torch.Tensor, blocks: list,
+                         last: torch.Tensor,
+                         rel_cond: torch.Tensor) -> torch.Tensor:
+    """The bins head from its bottleneck on, in f32: seed bins from
+    btlnck [B, C, h, w], the attractors over the four block features, the
+    log-binomial over `last` [B, 32, H, W] with its condition rel_cond
+    [B, 1, H, W]. Returns metric depth [B, H, W]."""
+    cfg = model.cfg
+    btlnck = btlnck.float()
     b_prev, _seed_centers = seed_bin_regressor(model.seed_bin_regressor,
                                                btlnck, cfg)
     prev_b_embedding = _mlp2(model.seed_projector._net, btlnck)
 
     b_centers = None
     b_embedding = prev_b_embedding
-    for proj, attr, name in zip(model.projectors, model.attractors,
-                                ("r4", "r3", "r2", "r1")):
-        b_embedding = _mlp2(proj._net, feats[name])
+    for proj, attr, feat in zip(model.projectors, model.attractors, blocks):
+        b_embedding = _mlp2(proj._net, feat.float())
         b_prev, b_centers = attractor_layer(attr, b_embedding, b_prev,
                                             prev_b_embedding, cfg)
         prev_b_embedding = b_embedding
 
-    last = feats["out_conv"]
+    last = torch.cat([last.float(), rel_cond.float()], dim=1)
     hw = last.shape[-2:]
-    rel_cond = resize2d_nchw(rel_depth.float()[:, None], hw, method="linear",
-                             align_corners=True)
-    last = torch.cat([last, rel_cond], dim=1)
     b_embedding = resize2d_nchw(b_embedding, hw, method="linear",
                                 align_corners=True)
     probs = conditional_log_binomial(model.conditional_log_binomial, last,
@@ -284,6 +308,13 @@ def init_params(model: MetricDepthAnything,
     core as `depth_anything.init_params`, the head's convs normal ·
     fan_in^-0.5 with zero biases."""
     da.init_params(model.core.core, generator)
+    return init_bins_head(model, generator)
+
+
+@torch.no_grad()
+def init_bins_head(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The head's convs (every Conv2d outside `core.`) normal ·
+    fan_in^-0.5 with zero biases, in place."""
     for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d) and not name.startswith("core."):
             m.weight.normal_(generator=generator).mul_(m.weight[0].numel() ** -0.5)

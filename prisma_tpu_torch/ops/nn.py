@@ -85,3 +85,13 @@ def attention(p, x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     return linear(p.fc2, gelu(linear(p.fc1, x)))
+
+
+def cast_floating(module: torch.nn.Module, dtype: torch.dtype,
+                  keep=lambda name: False) -> torch.nn.Module:
+    """Cast the module's floating parameters to dtype in place, except those
+    whose qualified name `keep` accepts (they stay as they are)."""
+    for name, p in module.named_parameters():
+        if p.is_floating_point() and not keep(name):
+            p.data = p.data.to(dtype)
+    return module

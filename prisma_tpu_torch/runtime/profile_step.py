@@ -3,17 +3,23 @@
     python -m prisma_tpu_torch.runtime.profile_step [--band depth_anything]
         [--steps 5] [--out FILE]
 
-    --band: depth_anything, depth_anything_metric, mask, flow_gmflow or
-    flow_raft
+    --band: depth_anything, depth_anything_metric, depth_patchfusion,
+    depth_zoedepth, mask, flow_gmflow or flow_raft
 
 Builds the band's step as chip_smoke.py does (bf16, random weights from a
-seed, uint8 1080p frames at batch 8) and prints:
+seed, uint8 1080p frames at batch 8; depth_patchfusion one frame a step, at
+p49) and prints:
 
 - the host-clock time of whole steps (H2D and D2H included);
 - the device time of each stage on a batch already on the card, from CUDA
   events (depth_anything: input resize + normalize, ViT, DPT head, resize
   back, heat; depth_anything_metric: the same stages with the bins head
-  (f32) and the antialiased bicubic back to 1080p; mask: preprocess,
+  (f32) and the antialiased bicubic back to 1080p; depth_zoedepth: the
+  reflect pad, the BEiT-L core, the MiDaS decoder, the bins head (f32) and
+  the bicubic back, each over both passes; depth_patchfusion: the coarse
+  pass, then on one batch of 8 tiles the fine core, its projections, the
+  ROIs and fusion convs, UNet + G2L and the bins head, and the whole frame;
+  mask: preprocess,
   ResNet-101, FPN, head, the eight frames' slabs (top-K, dynamic convs,
   matrix NMS, the upsample to 1080p), composite and SDF; flow_gmflow: input
   resize, backbone, transformer, global
@@ -36,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from prisma_tpu_torch.ops.resize import resize2d_nchw
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 
 BATCH, FRAME_HW = 8, (1080, 1920)
@@ -116,7 +123,6 @@ def depth_anything_metric_step(runtime: RuntimeConfig, frames: np.ndarray):
     from prisma_tpu_torch.models import dpt, vit
     from prisma_tpu_torch.models import zoedepth as zoe
     from prisma_tpu_torch.ops import encode as enc
-    from prisma_tpu_torch.ops.resize import resize2d_nchw
 
     model, infer, flip = depth_anything_band.build_infer(
         runtime, encoder="vitl", metric="outdoor")
@@ -193,6 +199,155 @@ def mask_step(runtime: RuntimeConfig, frames: np.ndarray):
             "SDF green channel": cuda_ms(lambda: sdf_green_device(comp), 3),
         }
     return step, stages
+
+
+def depth_zoedepth_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the batch already on the card}):
+    ZoeD_N as the fused video step runs it (pad, two passes, BEiT-L at
+    384x512, bins head in f32)."""
+    import math
+
+    import torch.nn.functional as F
+
+    from prisma_tpu_torch.bands import depth_base, depth_zoedepth_band
+    from prisma_tpu_torch.models import beit, midas, zoed
+    from prisma_tpu_torch.models import zoedepth as zoe
+    from prisma_tpu_torch.ops import encode as enc
+
+    model, infer, flip = depth_zoedepth_band.build_infer(runtime)
+    step = depth_base.make_step(model, infer, flip, need_depth=False)
+    step(frames)  # warm-up
+    H, W = frames.shape[1:3]
+    dev = runtime.resolve_device()
+    x = torch.from_numpy(frames).to(dev)
+    dtype = runtime.resolve_dtype()
+    core = model.core.core
+    size = zoed.IMG_SIZE
+    ph, pw = size[0] // 16, size[1] // 16
+    pad_h, pad_w = int(math.sqrt(H / 2) * 3), int(math.sqrt(W / 2) * 3)
+    mean = torch.tensor(zoed.IMAGENET_MEAN, device=dev)[:, None, None]
+    std = torch.tensor(zoed.IMAGENET_STD, device=dev)[:, None, None]
+
+    def pad():
+        img = x.permute(0, 3, 1, 2).float() / 255.0
+        return F.pad(img, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
+
+    with torch.inference_mode():
+        img = pad()
+        inp = ((resize2d_nchw(img, size, method="linear", align_corners=True)
+                - mean) / std).to(dtype)
+        feats = beit.get_intermediate_layers(core.pretrained.model, inp)
+        rel, cf = midas.decoder_forward(core, feats, ph, pw,
+                                        return_features=True)
+        metric = zoe.bins_head(model, rel, cf)
+        depth = infer(model, x)
+        t = {"pad": cuda_ms(pad),
+             "beit": cuda_ms(lambda: beit.get_intermediate_layers(
+                 core.pretrained.model, inp)),
+             "decoder": cuda_ms(lambda: midas.decoder_forward(
+                 core, feats, ph, pw, return_features=True)),
+             "bins": cuda_ms(lambda: zoe.bins_head(model, rel, cf)),
+             "back": cuda_ms(lambda: resize2d_nchw(
+                 metric[:, None], img.shape[-2:], method="cubic")),
+             "infer": cuda_ms(lambda: infer(model, x), 3),
+             "heat": cuda_ms(lambda: enc.depth_heat(depth, flip))}
+    passes = {"BEiT-L core (x2 passes)": 2 * t["beit"],
+              "MiDaS decoder (x2)": 2 * t["decoder"],
+              "bins head, f32 (x2)": 2 * t["bins"],
+              "bicubic back to the padded size (x2)": 2 * t["back"]}
+    return step, {"reflect pad": t["pad"], **passes,
+                  "the rest of infer (resize in, normalize, flip, average, "
+                  "crop)": t["infer"] - t["pad"] - sum(passes.values()),
+                  "heat epilogue": t["heat"]}
+
+
+def depth_patchfusion_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms}): PatchFusion's p49 step on the first
+    frame (the video default), stages from one batch of 8 tiles of it."""
+    from prisma_tpu_torch.bands import depth_base, depth_patchfusion_band
+    from prisma_tpu_torch.models import patchfusion as pf
+    from prisma_tpu_torch.models import zoedepth as zoe
+    from prisma_tpu_torch.ops import nn as pnn
+    from prisma_tpu_torch.ops.resize import resize2d
+    from prisma_tpu_torch.ops.roi_align import roi_align
+
+    model, infer, flip = depth_patchfusion_band.build_infer(runtime, mode="p49")
+    one = frames[:1]
+    band_step = depth_base.make_step(model, infer, flip, need_depth=False,
+                                     fused=False)
+    band_step(one)  # warm-up
+
+    def step(_frames):
+        return band_step(one)
+
+    dtype = runtime.resolve_dtype()
+    dev = runtime.resolve_device()
+    mh, mw = model.model_hw
+    lv = pf.level_hw(model.model_hw)
+    x = torch.from_numpy(one).to(dev)
+    resolution = pf.pick_resolution(*one.shape[1:3])
+    crop = (resolution[0] // 4, resolution[1] // 4)
+    tiles = pf.tile_passes("p49", resolution, crop)[0][:8]
+    areas, bboxes = pf._pass_areas(tuple(tiles), resolution, crop,
+                                   model.model_hw)
+    bbox = torch.tensor(bboxes, device=dev)
+    area = torch.tensor(areas[:, None], device=dev)
+    zeros = torch.zeros(len(tiles), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        img_t = resize2d(x.float() / 255.0, resolution, method="cubic",
+                         align_corners=True)[0].permute(2, 0, 1)
+        img_lr = resize2d_nchw(img_t[None], model.model_hw, method="linear",
+                               align_corners=True).to(dtype)
+        crops = pf._crop_resize(img_t, tiles, crop, model.model_hw).to(dtype)
+        coarse = pf.coarse_pass(model, img_lr)
+        fine_depth, hooks = pf.zoedepth_custom_forward(model.fine_model,
+                                                       pf._normalize(crops))
+        fine_feats = pf._proj6(model.fine_input_proj, hooks)
+        hh, hw = coarse[1].shape[-2:]
+        scale = torch.tensor([hw / mw, hh / mh, hw / mw, hh / mh],
+                             device=dev)
+
+        def rois_fusion():
+            rois = [roi_align(coarse[0][i], bbox, zeros, lv[i],
+                              lv[i][0] / mh, pf._roi_sampling(lv[i][0], mh))
+                    for i in range(6)]
+            whole = roi_align(coarse[1], bbox * scale, zeros, (mh, mw), 1.0, 5)
+            guides = [pnn.conv2d(model.fusion_conv_list[i], torch.cat(
+                [rois[i], fine_feats[i]], 1), padding=1) for i in range(6)]
+            return whole.to(dtype), guides
+
+        whole, guides = rois_fusion()
+        inp = torch.cat([whole, fine_depth[:, None].to(dtype), crops], 1)
+        areas_lv = [resize2d_nchw(area, hw2, method="linear",
+                                  align_corners=True).to(dtype) for hw2 in lv]
+
+        def unet():
+            return pf.unet_v1(model.fusion_extractor, inp, guides, coarse[0],
+                              areas_lv, bbox, model.model_hw)
+
+        out = unet()
+        zero_cond = torch.zeros_like(out[5][:, :1], dtype=torch.float32)
+        t = {"coarse": cuda_ms(lambda: pf.coarse_pass(model, img_lr), 3),
+             "fine": cuda_ms(lambda: pf.zoedepth_custom_forward(
+                 model.fine_model, pf._normalize(crops)), 3),
+             "proj": cuda_ms(lambda: pf._proj6(model.fine_input_proj, hooks)),
+             "rois": cuda_ms(rois_fusion, 3),
+             "unet": cuda_ms(unet, 3),
+             "bins": cuda_ms(lambda: zoe.bins_from_bottleneck(
+                 model, out[0], out[1:5], out[5], zero_cond), 3),
+             "frame": cuda_ms(lambda: infer(model, x), 1)}
+    batch = t["fine"] + t["proj"] + t["rois"] + t["unet"] + t["bins"]
+    return step, {
+        "coarse pass (BEiT-L, decoder, bins, projections, HR upsample)":
+            t["coarse"],
+        "fine core, a batch of 8 tiles": t["fine"],
+        "fine projections, a batch": t["proj"],
+        "ROIs + fusion convs, a batch": t["rois"],
+        "UNet + G2L, a batch": t["unet"],
+        "bins head (f32), a batch": t["bins"],
+        "the whole p49 frame": t["frame"],
+        "prep + accumulation + the rest (frame - coarse - 49/8 batches)":
+            t["frame"] - t["coarse"] - 49 / 8 * batch}
 
 
 def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
@@ -364,11 +519,14 @@ def flow_raft_step(runtime: RuntimeConfig, frames: np.ndarray):
     return step, stages
 
 
-STEPS = {"depth_anything": (depth_anything_step, "frames"),
-         "depth_anything_metric": (depth_anything_metric_step, "frames"),
-         "mask": (mask_step, "frames"),
-         "flow_gmflow": (flow_gmflow_step, "pairs"),
-         "flow_raft": (flow_raft_step, "pairs")}
+# band: (step builder, unit, items a step)
+STEPS = {"depth_anything": (depth_anything_step, "frames", BATCH),
+         "depth_anything_metric": (depth_anything_metric_step, "frames", BATCH),
+         "depth_patchfusion": (depth_patchfusion_step, "frames", 1),
+         "depth_zoedepth": (depth_zoedepth_step, "frames", BATCH),
+         "mask": (mask_step, "frames", BATCH),
+         "flow_gmflow": (flow_gmflow_step, "pairs", BATCH - 1),
+         "flow_raft": (flow_raft_step, "pairs", BATCH - 1)}
 
 
 def main(argv=None):
@@ -389,17 +547,16 @@ def main(argv=None):
                             device="cuda")
     frames = np.random.default_rng(args.seed).integers(
         0, 256, size=(BATCH, *FRAME_HW, 3), dtype=np.uint8)
-    build_step, unit = STEPS[args.band]
+    build_step, unit, items = STEPS[args.band]
     step, stages = build_step(runtime, frames)
-    items = BATCH - 1 if unit == "pairs" else BATCH
 
     times = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
         step(frames)
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"{args.band} step, host clock, {args.steps} steps of {BATCH} "
-          f"frames ({items} {unit}): " + ", ".join(f"{t:.2f}" for t in times)
+    print(f"{args.band} step, host clock, {args.steps} steps of "
+          f"{items} {unit}: " + ", ".join(f"{t:.2f}" for t in times)
           + f" ms; mean {np.mean(times):.2f} ms "
           f"({items * 1e3 / np.mean(times):.2f} {unit}/s)")
     print("stages on a batch already on the card (CUDA events): "

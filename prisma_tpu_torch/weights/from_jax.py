@@ -1,10 +1,11 @@
 """The JAX package's parameter trees as the port's state_dicts.
 
 `depth_anything_state_dict`, `metric_depth_anything_state_dict`,
-`gmflow_state_dict`, `raft_state_dict` and `solov2_state_dict` invert
+`gmflow_state_dict`, `raft_state_dict`, `solov2_state_dict`,
+`zoed_state_dict` and `patchfusion_state_dict` invert
 `prisma_tpu.weights.torch_convert.convert_depth_anything`,
-`convert_metric_depth_anything`, `convert_gmflow`, `convert_raft` and
-`convert_solov2`: they take the JAX parameters as numpy arrays and return the
+`convert_metric_depth_anything`, `convert_gmflow`, `convert_raft`,
+`convert_solov2`, `convert_zoed` and `convert_patchfusion`: they take the JAX parameters as numpy arrays and return the
 reference checkpoint's keys and layouts, so that tests can run both packages
 on the same weights.
 """
@@ -103,7 +104,13 @@ def metric_depth_anything_state_dict(params_np: dict) -> dict[str, torch.Tensor]
     bins-head state_dict, f32 CPU tensors."""
     sd = {"core.core." + k: v
           for k, v in depth_anything_state_dict(params_np["core"]).items()}
-    head = params_np["head"]
+    sd.update(bins_head_state_dict(params_np["head"]))
+    return sd
+
+
+def bins_head_state_dict(head: dict) -> dict[str, torch.Tensor]:
+    """The JAX ZoeDepth bins head -> its top-level checkpoint keys."""
+    sd: dict = {}
 
     def mlp(key, p):
         _conv(sd, key + ".0", p["fc1"])
@@ -252,4 +259,111 @@ def solov2_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
             cgn(f"{mh}{name}.{i}", p)
     _conv(sd, mh + "conv_kernel", head["conv_kernel"])
     _conv(sd, mh + "conv_cls", head["conv_cls"])
+    return sd
+
+
+def beit_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX BEiT tree -> timm's keys (the MiDaS checkpoint's
+    `pretrained.model.*` without the prefix)."""
+    sd: dict = {}
+    w = np.asarray(params_np["patch_embed"]["w"])  # [(kh, kw, c), D]
+    sd["patch_embed.proj.weight"] = _t(
+        w.reshape(16, 16, -1, w.shape[1]).transpose(3, 2, 0, 1))
+    sd["patch_embed.proj.bias"] = _t(params_np["patch_embed"]["b"])
+    sd["cls_token"] = _t(params_np["cls_token"])
+    for i, b in enumerate(params_np["blocks"]):
+        k = f"blocks.{i}."
+        _norm(sd, k + "norm1", b["norm1"])
+        sd[k + "attn.qkv.weight"] = _t(np.asarray(b["attn"]["qkv_w"]).T)
+        sd[k + "attn.q_bias"] = _t(b["attn"]["q_bias"])
+        sd[k + "attn.v_bias"] = _t(b["attn"]["v_bias"])
+        sd[k + "attn.relative_position_bias_table"] = _t(b["rel_pos_table"])
+        _linear(sd, k + "attn.proj", b["attn"]["proj"])
+        sd[k + "gamma_1"] = _t(b["gamma1"])
+        _norm(sd, k + "norm2", b["norm2"])
+        _linear(sd, k + "mlp.fc1", b["mlp"]["fc1"])
+        _linear(sd, k + "mlp.fc2", b["mlp"]["fc2"])
+        sd[k + "gamma_2"] = _t(b["gamma2"])
+    return sd
+
+
+def midas_decoder_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX MiDaS decoder tree -> the hub DPTDepthModel's
+    `pretrained.act_postprocess*` and `scratch.*` keys."""
+    sd: dict = {}
+    for i in range(4):
+        k = f"pretrained.act_postprocess{i + 1}."
+        _linear(sd, k + "0.project.0", params_np["readout"][i])
+        _conv(sd, k + "3", params_np["projects"][i])
+        _conv(sd, f"scratch.layer{i + 1}_rn", params_np["scratch"][i])
+    _conv_t(sd, "pretrained.act_postprocess1.4", params_np["resize0"])
+    _conv_t(sd, "pretrained.act_postprocess2.4", params_np["resize1"])
+    _conv(sd, "pretrained.act_postprocess4.4", params_np["resize3"])
+    for i, r in enumerate(params_np["refinenet"]):
+        k = f"scratch.refinenet{i + 1}."
+        for unit, name in (("rcu1", "resConfUnit1"), ("rcu2", "resConfUnit2")):
+            _conv(sd, k + name + ".conv1", r[unit]["conv1"])
+            _conv(sd, k + name + ".conv2", r[unit]["conv2"])
+        _conv(sd, k + "out_conv", r["out_conv"])
+    for j, name in ((0, "head0"), (2, "head2"), (4, "head4")):
+        _conv(sd, f"scratch.output_conv.{j}", params_np[name])
+    return sd
+
+
+def zoed_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX ZoeD_N tree ({"core": {"beit", "decoder"}, "head"}) ->
+    `ZoeD_M12_N.pt`'s keys (also each PatchFusion sub-model's)."""
+    sd = {"core.core.pretrained.model." + k: v
+          for k, v in beit_state_dict(params_np["core"]["beit"]).items()}
+    sd.update({"core.core." + k: v for k, v in
+               midas_decoder_state_dict(params_np["core"]["decoder"]).items()})
+    sd.update(bins_head_state_dict(params_np["head"]))
+    return sd
+
+
+def patchfusion_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX PatchFusion tree -> `patchfusion_u4k.pt`'s keys; the UNet's
+    folded batch norms unfolded as `_unfold_bn` does."""
+    sd: dict = {}
+    for part in ("coarse", "fine"):
+        sd.update({f"{part}_model." + k: v
+                   for k, v in zoed_state_dict(params_np[part]).items()})
+        for i, p in enumerate(params_np[f"{part}_input_proj"]):
+            _conv(sd, f"{part}_input_proj.{i}", p)
+    for i, p in enumerate(params_np["fusion_conv"]):
+        _conv(sd, f"fusion_conv_list.{i}", p)
+    u = params_np["unet"]
+    fe = "fusion_extractor."
+
+    def dconv_bn(key, p):
+        _conv(sd, key + ".0", p["conv1"])
+        _unfold_bn(sd, key + ".1", p["bn1"])
+        _conv(sd, key + ".3", p["conv2"])
+        _unfold_bn(sd, key + ".4", p["bn2"])
+
+    def dconv(key, p):
+        _conv(sd, key + ".0", p["conv1"])
+        _conv(sd, key + ".2", p["conv2"])
+
+    dconv_bn(fe + "inc.double_conv", u["inc"])
+    for i, p in enumerate(u["down"]):
+        dconv_bn(fe + f"down{i + 1}.maxpool_conv.1.double_conv", p)
+    for i, p in enumerate(u["up"]):
+        dconv(fe + f"up{i + 1}.conv.double_conv", p)
+    for k, (conv, g2l) in enumerate(zip(u["conv"], u["g2l"])):
+        dconv(fe + f"conv{5 - k}.double_conv", conv)
+        g = fe + f"g2l{5 - k}."
+        _conv(sd, g + "embed_proj", g2l["embed_proj"])
+        sd[g + "absolute_pos_embed"] = _t(g2l["absolute_pos_embed"])
+        for i, b in enumerate(g2l["blocks"]):
+            kb = g + f"g2l_layer.blocks.{i}."
+            _norm(sd, kb + "norm1", b["norm1"])
+            _linear(sd, kb + "attn.qkv", b["qkv"])
+            _linear(sd, kb + "attn.proj", b["proj"])
+            sd[kb + "attn.relative_position_bias_table"] = _t(b["rel_pos_table"])
+            _norm(sd, kb + "norm2", b["norm2"])
+            _linear(sd, kb + "mlp.fc1", b["mlp"]["fc1"])
+            _linear(sd, kb + "mlp.fc2", b["mlp"]["fc2"])
+        _norm(sd, g + "g2l_layer_norm", g2l["norm"])
+    sd.update(bins_head_state_dict(params_np["head"]))
     return sd

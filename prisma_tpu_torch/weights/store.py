@@ -11,22 +11,30 @@ RuntimeConfig.models_dir):
   gmflow_sintel-0c07dcb3.pth             torch checkpoint, state_dict under 'model'
   raft-sintel.pth                        torch state_dict, DataParallel `module.` keys
   solov2_r101_fpn_3x_coco*.pth           mmdet checkpoint, state_dict under 'state_dict'
+  ZoeD_M12_N.pt                          ZoeD_N (BEiT-L core + bins head), under 'model'
+  patchfusion_u4k.pt                     PatchFusion, state_dict (or under 'model')
 
 With runtime.random_weights=True models initialize randomly from a seeded
-torch.Generator instead: same shapes, no files needed.
+torch.Generator instead: same shapes, no files needed (the BEiT depth of
+ZoeD_N from PRISMA_ZOED_DEPTH, PatchFusion's BEiT depth and model size from
+PRISMA_PF_DEPTH and PRISMA_PF_SIZE, as the JAX package's loaders read them).
 """
 
 from __future__ import annotations
 
+import fnmatch
 import glob
 import os
 
 import torch
 
+from prisma_tpu_torch.models import beit
 from prisma_tpu_torch.models import depth_anything as da
 from prisma_tpu_torch.models import gmflow as gm
+from prisma_tpu_torch.models import patchfusion as pf
 from prisma_tpu_torch.models import raft
 from prisma_tpu_torch.models import solov2
+from prisma_tpu_torch.models import zoed
 from prisma_tpu_torch.models import vit as pvit
 from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
@@ -178,3 +186,91 @@ def load_solov2(runtime: RuntimeConfig,
             sd.setdefault(k, v.new_zeros(()))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# buffers of the BEiT-core checkpoints that are functions of the geometry or
+# the bin count (the JAX converter reads none of them either)
+DERIVED = ("*relative_position_index", "*attn_mask",
+           "*log_binomial_transform.k_idx", "*log_binomial_transform.K_minus_1")
+
+
+def _load_strict(model: torch.nn.Module, sd: dict) -> torch.nn.Module:
+    """load_state_dict(strict=True) of a checkpoint without its derived
+    buffers; batch-norm step counters it leaves out are filled in."""
+    sd = {k: v for k, v in sd.items()
+          if not any(fnmatch.fnmatch(k, p) for p in DERIVED)}
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, v.new_zeros(()))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _checkpoint(runtime: RuntimeConfig, name: str) -> dict:
+    path = os.path.join(runtime.models_dir, name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"checkpoint {path} not found; place {name} there or set "
+            "runtime.random_weights=True for smoke runs")
+    return _load_torch_state_dict(path)
+
+
+def _zoed_widths(sd: dict, prefix: str = "") -> dict:
+    """The widths of a ZoeDepth (BEiT core) state_dict: the BEiT's embed,
+    depth and heads, the decoder's features and out_channels."""
+    p = prefix + "core.core."
+    b = p + "pretrained.model."
+    depth = 0
+    while f"{b}blocks.{depth}.norm1.weight" in sd:
+        depth += 1
+    return {"beit_cfg": beit.BEiTConfig(
+                embed_dim=sd[b + "patch_embed.proj.weight"].shape[0],
+                depth=depth,
+                num_heads=sd[b + "blocks.0.attn.relative_position_bias_table"]
+                .shape[1]),
+            "features": sd[p + "scratch.layer1_rn.weight"].shape[0],
+            "out_channels": tuple(
+                sd[f"{p}pretrained.act_postprocess{i}.3.weight"].shape[0]
+                for i in range(1, 5))}
+
+
+def zoed_from_state_dict(sd: dict, device="cpu") -> zoed.ZoeDepth:
+    """A ZoeDepth of the state_dict's widths, loaded with strict=True (the
+    derived buffers dropped)."""
+    return _load_strict(zoed.build(**_zoed_widths(sd), device=device), sd)
+
+
+def patchfusion_from_state_dict(sd: dict, model_hw=pf.MODEL_HW,
+                                device="cpu") -> pf.PatchFusion:
+    """A PatchFusion of the state_dict's widths at model_hw, loaded with
+    strict=True (the derived buffers dropped)."""
+    model = pf.build(**_zoed_widths(sd, "coarse_model."), model_hw=model_hw,
+                     device=device)
+    return _load_strict(model, sd)
+
+
+def load_zoed(runtime: RuntimeConfig) -> zoed.ZoeDepth:
+    """ZoeD_N, f32 on the CPU: random from the seed (a BEiT-L of
+    PRISMA_ZOED_DEPTH blocks, default 24), or `ZoeD_M12_N.pt` (reference
+    depth_zoedepth.py:31-35) loaded with strict=True."""
+    if runtime.random_weights:
+        depth = int(os.environ.get("PRISMA_ZOED_DEPTH", "24"))
+        model = zoed.build(beit.BEiTConfig(depth=depth))
+        return zoed.init_params(model, torch.Generator().manual_seed(RANDOM_SEED))
+    return zoed_from_state_dict(_checkpoint(runtime, "ZoeD_M12_N.pt"))
+
+
+def load_patchfusion(runtime: RuntimeConfig):
+    """-> (PatchFusion f32 on the CPU, model_hw): random from the seed (BEiT
+    depth PRISMA_PF_DEPTH, default 24; model size PRISMA_PF_SIZE "h,w",
+    default 384,512), or `patchfusion_u4k.pt` (reference
+    depth_patchfusion.py) loaded with strict=True at (384, 512)."""
+    if runtime.random_weights:
+        hw = tuple(int(v) for v in os.environ.get(
+            "PRISMA_PF_SIZE", "384,512").split(","))
+        depth = int(os.environ.get("PRISMA_PF_DEPTH", "24"))
+        model = pf.build(beit.BEiTConfig(depth=depth), model_hw=hw)
+        return pf.init_params(model, torch.Generator().manual_seed(
+            RANDOM_SEED)), hw
+    return (patchfusion_from_state_dict(
+        _checkpoint(runtime, "patchfusion_u4k.pt")), pf.MODEL_HW)

@@ -113,7 +113,7 @@ def test_band_cli_runs_an_image(tmp_path):
 def test_port_imports_without_jax_cv2_or_triton():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'cv2', 'triton'):\n"
+        "for m in ('jax', 'cv2', 'triton', 'torchvision'):\n"
         "    sys.modules[m] = None\n"
         "import prisma_tpu_torch\n"
         "for mod in pkgutil.walk_packages(prisma_tpu_torch.__path__, "
@@ -125,6 +125,16 @@ def test_port_imports_without_jax_cv2_or_triton():
         "import prisma_tpu_torch.cli.process, prisma_tpu_torch.models.zoedepth\n"
         "import prisma_tpu_torch.models.solov2, prisma_tpu_torch.ops.sdf\n"
         "import prisma_tpu_torch.io.colmap_model\n"
+        "import prisma_tpu_torch.bands.depth_patchfusion_band\n"
+        "import prisma_tpu_torch.bands.depth_zoedepth_band\n"
+        "import prisma_tpu_torch.models.beit, prisma_tpu_torch.models.midas\n"
+        "import prisma_tpu_torch.models.zoed, prisma_tpu_torch.ops.roi_align\n"
+        "import prisma_tpu_torch.models.patchfusion as pf, torch, numpy as np\n"
+        "m = pf.build(pf.beit.BEiTConfig(embed_dim=32, depth=4, num_heads=2),\n"
+        "             features=32, out_channels=(8, 8, 16, 16), model_hw=(32, 32))\n"
+        "pf.init_params(m, torch.Generator().manual_seed(0))\n"
+        "img = torch.from_numpy(np.zeros((40, 40, 3), np.uint8))\n"
+        "assert pf.infer(m, img, mode='p16', tile_batch=16).shape == (40, 40)\n"
         "assert 'prisma_tpu' not in sys.modules, 'imported the JAX package'\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

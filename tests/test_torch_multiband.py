@@ -140,7 +140,7 @@ def test_fused_skips_existing_band(tmp_path, narrow_mask, capsys):
     assert "skipping" in capsys.readouterr().out
     assert os.path.exists(str(tmp_path / "depth_anything.mp4"))
     assert os.path.getsize(str(tmp_path / "mask.mp4")) == 0
-    with pytest.raises(ValueError, match="not ported yet: depth_midas, depth_zoedepth "
+    with pytest.raises(ValueError, match="not ported yet: depth_midas "
                        r"\(see ROADMAP.md queue 1\)"):
         multiband.run_fused(clip, runtime, depth_band="depth_midas")
 
@@ -321,29 +321,42 @@ def test_process_matches_jax_process(tmp_path, small_mask, monkeypatch,
             assert d.mean() < vmean and d.max() <= vmax, (video, i, d.mean())
 
 
-def test_process_raises_before_any_work(tmp_path, narrow_mask):
+def test_process_raises_before_any_work(tmp_path, narrow_mask, monkeypatch):
     """A band the port lacks, or the card where there is none, raises before
-    the folder exists; an image with -d depth_anything runs (mask too)."""
+    the folder exists; an image's default (depth_patchfusion, whose band
+    is stubbed here: tests/test_torch_process_image.py runs it) goes past
+    that check; an image with -d depth_anything runs (mask too)."""
     import cv2
     import torch
 
+    from prisma_tpu_torch.bands import depth_patchfusion_band
     from prisma_tpu_torch.cli.process import main
     img = str(tmp_path / "photo.png")
     cv2.imwrite(img, np.random.default_rng(0).integers(
         0, 255, (64, 96, 3)).astype(np.uint8))
     folder = tmp_path / "photo"
-    # an image's default depth band is depth_patchfusion
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet: depth_patchfusion "
-                             r"\(see ROADMAP.md queue 1\)"):
-        main(["-i", img, "--random_weights", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet: depth_midas, "
-                       "depth_marigold, depth_zoedepth, depth_patchfusion"):
+                       r"depth_marigold \(see ROADMAP.md queue 1\)"):
         main(["-i", img, "-d", "all", "--random_weights", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             main(["-i", img, "-d", "depth_anything", "--random_weights"])
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            main(["-i", img, "--random_weights"])
     assert not folder.exists()
+
+    # an image's default depth band is depth_patchfusion, run at its
+    # default mode (r128; a video's is p49)
+    calls = []
+    monkeypatch.setattr(depth_patchfusion_band, "run",
+                        lambda folder, **kw: calls.append((folder, kw)))
+    other = str(tmp_path / "other.png")
+    shutil.copy(img, other)
+    main(["-i", other, "--random_weights", "--mask", "none", "--device", "cpu"])
+    assert len(calls) == 1 and calls[0][0] == str(tmp_path / "other")
+    assert {k: v for k, v in calls[0][1].items() if k != "runtime"} == {
+        "subpath": "", "npy": False, "ply": False}
+    monkeypatch.undo()
 
     out = main(["-i", img, "-d", "depth_anything", "--random_weights",
                 "--encoder", "vits", "--depth_size", "126", "--dtype",

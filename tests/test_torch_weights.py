@@ -1,6 +1,7 @@
 """The port's weights: reference-key state_dicts, the JAX converter round
 trip, and checkpoint files in each on-disk format, for relative
-Depth-Anything, metric Depth-Anything (ZoeDepth head) and SOLOv2."""
+Depth-Anything, metric Depth-Anything (ZoeDepth head), SOLOv2, ZoeD_N and
+PatchFusion."""
 
 import numpy as np
 import pytest
@@ -11,15 +12,20 @@ import jax
 from prisma_tpu.weights.torch_convert import (convert_checked,
                                               convert_depth_anything,
                                               convert_metric_depth_anything,
-                                              convert_solov2)
+                                              convert_patchfusion,
+                                              convert_solov2, convert_zoed)
+from prisma_tpu_torch.models import beit
 from prisma_tpu_torch.models import depth_anything as da
-from prisma_tpu_torch.models import solov2, vit
+from prisma_tpu_torch.models import patchfusion as pf
+from prisma_tpu_torch.models import solov2, vit, zoed
 from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.weights import store
 from prisma_tpu_torch.weights.from_jax import (depth_anything_state_dict,
                                                metric_depth_anything_state_dict,
-                                               solov2_state_dict)
+                                               patchfusion_state_dict,
+                                               solov2_state_dict,
+                                               zoed_state_dict)
 
 TINY = vit.ViTConfig(embed_dim=64, depth=2, num_heads=2)
 # the real vits checkpoint's DPT layout in miniature: widths differ per level
@@ -240,3 +246,171 @@ def test_family_random_init_is_seeded():
     # the JAX package's random metric core: features 64 for vits
     assert m.conv2.weight.shape == (64, 64, 1, 1)
     assert torch.all(m.conv2.bias == 0)
+
+
+# The BEiT-core families: ZoeD_N and PatchFusion, narrow (a BEiT 64 wide,
+# 4 heads, 4 blocks; 32 features) in the checkpoints' key layouts.
+BEIT_NARROW = dict(beit_cfg=beit.BEiTConfig(embed_dim=64, depth=4, num_heads=4),
+                   features=32, out_channels=(16, 32, 64, 64))
+
+
+@pytest.fixture(scope="module")
+def beit_models():
+    z = zoed.init_params(zoed.build(**BEIT_NARROW),
+                         torch.Generator().manual_seed(3))
+    p = pf.init_params(pf.build(**BEIT_NARROW, model_hw=pf.MODEL_HW),
+                       torch.Generator().manual_seed(4))
+    return {"zoed": z, "patchfusion": p}
+
+
+BEIT_KEYS = {
+    "zoed": ("core.core.pretrained.model.cls_token",
+             "core.core.pretrained.model.patch_embed.proj.weight",
+             "core.core.pretrained.model.blocks.3.attn.qkv.weight",
+             "core.core.pretrained.model.blocks.0.attn.q_bias",
+             "core.core.pretrained.model.blocks.0.attn.v_bias",
+             "core.core.pretrained.model.blocks.2.attn.relative_position_bias_table",
+             "core.core.pretrained.model.blocks.1.gamma_1",
+             "core.core.pretrained.model.blocks.1.gamma_2",
+             "core.core.pretrained.act_postprocess1.0.project.0.weight",
+             "core.core.pretrained.act_postprocess1.3.bias",
+             "core.core.pretrained.act_postprocess1.4.weight",
+             "core.core.pretrained.act_postprocess2.4.weight",
+             "core.core.pretrained.act_postprocess4.4.weight",
+             "core.core.scratch.layer4_rn.weight",
+             "core.core.scratch.refinenet1.resConfUnit2.conv1.bias",
+             "core.core.scratch.refinenet4.out_conv.weight",
+             "core.core.scratch.output_conv.0.weight",
+             "core.core.scratch.output_conv.2.bias",
+             "core.core.scratch.output_conv.4.weight",
+             "conv2.weight", "seed_bin_regressor._net.2.bias",
+             "attractors.3._net.0.weight",
+             "conditional_log_binomial.mlp.2.weight"),
+    "patchfusion": (
+        "coarse_model.core.core.pretrained.model.blocks.0.attn.q_bias",
+        "fine_model.core.core.scratch.output_conv.4.bias",
+        "fine_model.conditional_log_binomial.mlp.0.weight",
+        "coarse_input_proj.5.weight", "fine_input_proj.4.bias",
+        "fusion_conv_list.5.weight",
+        "fusion_extractor.inc.double_conv.0.weight",
+        "fusion_extractor.inc.double_conv.1.running_var",
+        "fusion_extractor.down5.maxpool_conv.1.double_conv.4.weight",
+        "fusion_extractor.up1.conv.double_conv.0.bias",
+        "fusion_extractor.up5.conv.double_conv.2.weight",
+        "fusion_extractor.conv0.double_conv.2.bias",
+        "fusion_extractor.conv5.double_conv.0.weight",
+        "fusion_extractor.g2l0.embed_proj.weight",
+        "fusion_extractor.g2l5.absolute_pos_embed",
+        "fusion_extractor.g2l3.g2l_layer.blocks.2.attn.qkv.bias",
+        "fusion_extractor.g2l0.g2l_layer.blocks.1.attn."
+        "relative_position_bias_table",
+        "fusion_extractor.g2l1.g2l_layer.blocks.0.mlp.fc2.weight",
+        "fusion_extractor.g2l4.g2l_layer_norm.bias",
+        "conv2.weight", "projectors.0._net.0.weight",
+        "conditional_log_binomial.mlp.2.bias")}
+
+
+@pytest.mark.parametrize("family", ["zoed", "patchfusion"])
+def test_beit_family_keys_are_the_reference_checkpoints(beit_models, family):
+    keys = set(beit_models[family].state_dict())
+    for k in BEIT_KEYS[family]:
+        assert k in keys, k
+    # the UNet's DoubleConvs under a batch norm have no conv bias
+    assert ("fusion_extractor.inc.double_conv.0.bias" not in keys
+            and "core.core.pretrained.model.blocks.0.attn.qkv.bias" not in keys
+            if family == "patchfusion"
+            else "core.core.pretrained.model.blocks.0.attn.qkv.bias" not in keys)
+    assert not any(k.endswith("relative_position_index") for k in keys)
+
+
+@pytest.mark.parametrize("family", ["zoed", "patchfusion"])
+def test_beit_family_convert_then_from_jax_round_trip(beit_models, family):
+    """Exact but the UNet's batch norms, which convert_patchfusion folds and
+    from_jax unfolds to mean 0, variance 1 - eps: their folded scale and
+    shift come back within an ulp; every key is read by the JAX
+    converter."""
+    sd = beit_models[family].state_dict()
+    np_sd = {k: v.numpy() for k, v in sd.items()}
+    if family == "zoed":
+        params = convert_checked(convert_zoed, {"model": np_sd})
+        back = zoed_state_dict(jax.tree.map(np.asarray, params))
+    else:
+        params = convert_checked(convert_patchfusion, np_sd)
+        back = patchfusion_state_dict(jax.tree.map(np.asarray, params))
+    assert set(back) == set(sd)
+
+    def folded(d, bn):
+        scale = d[bn + "weight"] / torch.sqrt(d[bn + "running_var"] + 1e-5)
+        return scale, d[bn + "bias"] - d[bn + "running_mean"] * scale
+
+    for k, v in sd.items():
+        if ".double_conv.1." in k or ".double_conv.4." in k:
+            bn = k[:k.rindex(".") + 1]
+            for a, b in zip(folded(back, bn), folded(sd, bn)):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2.4e-7,
+                                           atol=0, err_msg=k)
+        else:
+            assert torch.equal(back[k], v), k
+
+
+def _derived_buffers(sd: dict) -> dict:
+    """The buffers a real checkpoint carries that the port computes."""
+    extra = {}
+    for k in sd:
+        if k.endswith("attn.relative_position_bias_table"):
+            extra[k.replace("bias_table", "index")] = torch.zeros(2, 2, dtype=torch.long)
+        if ".g2l_layer.blocks.1." in k and k.endswith("norm1.weight"):
+            extra[k.replace("norm1.weight", "attn_mask")] = torch.zeros(1, 4, 4)
+        if k.endswith("conditional_log_binomial.mlp.0.weight"):
+            p = k.replace("mlp.0.weight", "log_binomial_transform.")
+            extra[p + "k_idx"] = torch.arange(64.0).view(1, -1, 1, 1)
+            extra[p + "K_minus_1"] = torch.tensor([63.0])
+    return extra
+
+
+@pytest.mark.parametrize("family", ["zoed", "patchfusion"])
+def test_beit_family_checkpoint_files_load_strict(tmp_path, beit_models, family):
+    """ZoeD_M12_N.pt under 'model', patchfusion_u4k.pt raw without its batch
+    norms' step counters; both with the derived buffers. Each loads with
+    strict=True; a missing key raises."""
+    sd = beit_models[family].state_dict()
+    runtime = RuntimeConfig(models_dir=str(tmp_path), random_weights=False,
+                            device="cpu")
+    if family == "zoed":
+        torch.save({"model": {**sd, **_derived_buffers(sd)}},
+                   tmp_path / "ZoeD_M12_N.pt")
+        loaded = store.load_zoed(runtime)
+    else:
+        payload = {k: v for k, v in {**sd, **_derived_buffers(sd)}.items()
+                   if not k.endswith("num_batches_tracked")}
+        torch.save(payload, tmp_path / "patchfusion_u4k.pt")
+        loaded, model_hw = store.load_patchfusion(runtime)
+        assert model_hw == (384, 512)
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    broken = dict(sd)
+    del broken["attractors.1._net.2.bias"]
+    with pytest.raises(RuntimeError, match="Missing key"):
+        (store.zoed_from_state_dict if family == "zoed"
+         else store.patchfusion_from_state_dict)(broken)
+
+
+def test_beit_family_random_init_is_seeded(monkeypatch, tmp_path):
+    monkeypatch.setenv("PRISMA_ZOED_DEPTH", "4")
+    monkeypatch.setenv("PRISMA_PF_DEPTH", "4")
+    monkeypatch.setenv("PRISMA_PF_SIZE", "64,96")
+    runtime = RuntimeConfig(random_weights=True, device="cpu")
+    a = store.load_zoed(runtime).state_dict()
+    b = store.load_zoed(runtime).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert a["core.core.pretrained.model.patch_embed.proj.weight"].shape[0] == 1024
+    assert torch.all(a["core.core.pretrained.model.blocks.0.gamma_1"] == 0.1)
+    model, hw = store.load_patchfusion(runtime)
+    assert hw == (64, 96) and model.model_hw == (64, 96)
+    assert len(model.fine_model.core.core.pretrained.model.blocks) == 4
+    assert model.fusion_extractor.g2l0.absolute_pos_embed.shape == (1, 64 * 96, 32)
+    with pytest.raises(FileNotFoundError, match="ZoeD_M12_N.pt"):
+        store.load_zoed(RuntimeConfig(models_dir=str(tmp_path), device="cpu"))
+    with pytest.raises(FileNotFoundError, match="patchfusion_u4k.pt"):
+        store.load_patchfusion(RuntimeConfig(models_dir=str(tmp_path),
+                                             device="cpu"))
