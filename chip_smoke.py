@@ -13,7 +13,9 @@ their probe ran them, the steps of process.py's default video run on the
 same frames: metric Depth-Anything, the SOLOv2 mask with its SDF, and the
 three steps of one batch of the fused pipeline; then the BEiT-L depth
 family: PatchFusion on a 1080p frame at p49, ZoeD_N's video step, and an
-image's default run (mask, PatchFusion at r128). It holds every kernel
+image's default run (mask, PatchFusion at r128); then MiDaS (DPT_Large
+and v2.1 video steps at batch 8) and Marigold (one 1080p frame, 10 steps x
+10 members at 768). It holds every kernel
 against its plain PyTorch version. The folder writers (decode, x264) are
 not driven: the card's machine is not known to have libav or colmap. Each phase prints a line; a
 failed phase ends the run with a non-zero exit. Without a CUDA device it
@@ -27,10 +29,12 @@ exits non-zero at once.
      (HGMMA > 0) and no legacy HMMA, and ptxas must serialize the wgmma of
      none (C7514/C7515); the same counts of raft_lookup.cu's kernels, which
      must load with cp.async (LDGSTS > 0)
-  3. k1: K1 flash attention against its plain version, eight shapes (the
-     128-row tile edges at d=128 and the metric core's ragged 1037 tokens
-     among them); kernel, plain, library call and bound at the ViT-L shape
-     and at the metric core's
+  3. k1: K1 flash attention against its plain version, eleven shapes (the
+     128-row tile edges at d=128, the metric core's ragged 1037 tokens,
+     DPT_Large's [128, 337, 64] and the Marigold UNet's [50, 5184, 64] and
+     [100, 1296, 64] among them); at the last three the bound shown to fail
+     with the ragged key tile left unmasked; kernel, plain, SDPA and bound
+     at the ViT-L shape, the metric core's and those three
   4. f32: a tiny Depth-Anything in f32 with TF32 off on the card against
      the CPU
   5. main: the Depth-Anything path at full width (K1 launches counted,
@@ -108,6 +112,22 @@ exits non-zero at once.
      and the depth PNG's heatmap: s/image, peak memory
      Phases 20-23 run no kernel of csrc/ (the JAX package has no Pallas
      kernel there): their launch counts must stay 0.
+ 24. midas-f32: DPT_Large (ViT-L/16, 24 f32 K1) and MiDaS v2.1
+     (ResNeXt-101 32x8d, no kernel) at full width on one 1080p frame, in
+     f32 with TF32 off on the card against the CPU, within 1e-4 of the
+     disparity's scale
+ 25. midas: the fused video steps at batch 8: midas3 (DPT_Large at
+     384x224, 24 K1 a step, K1 held to its plain version at every layer of
+     one frame, that frame's disparity within 2x the null distance) and
+     midas2 (no kernel): frames/s, peak memory
+ 26. marigold: one 1080p frame through the band's non-fused infer, 10 DDIM
+     steps x 10 members at 768 (100 K1 a frame: [50, 5184, 64] and [100,
+     1296, 64]), s/frame, peak memory; every K1 call of one frame held to
+     its plain version; the depth within 2x the null distance
+ 27. marigold-f32: the full-width UNet, VAE and ensembling (phase 26's
+     weights, widened) on a 256x256 frame at 256, 2 members x 2 steps, in
+     f32 on the card against the CPU (the same member latents), within
+     1e-4 of the depth's scale, 10 f32 K1
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -129,6 +149,14 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_SHAPE = (128, 2443, 64)  # ViT-L at 1080p, batch 8: [B*heads, tokens, d]
 METRIC_SHAPE = (128, 1037, 64)  # the metric core at 392x518: 28x37 patches + cls
+MIDAS_SHAPE = (128, 337, 64)  # DPT_Large at 384x224: 24x14 patches + cls
+# Marigold's UNet at 768x432 (a 96x54 latent), 10 members: 5 heads over
+# 5184 tokens, 10 heads over 1296 (27x48)
+UNET_SHAPES = ((50, 5184, 64), (100, 1296, 64))
+# [B*heads, N, d] -> the [batch, heads, N, d] an SDPA call takes
+SDPA_VIEW = {MAIN_SHAPE: (8, 16), METRIC_SHAPE: (8, 16), MIDAS_SHAPE: (8, 16),
+             UNET_SHAPES[0]: (10, 5), UNET_SHAPES[1]: (10, 10)}
+K1_TILE_K = 128  # K1's keys per tile (csrc/flash_attention.cu)
 BATCH, FRAME_HW, TIMED_STEPS = 8, (1080, 1920), 3
 FLOW_HW, FEAT_HW = (810, 1440), (102, 180)  # 0.75x 1080p; its 1/8 features (/16 pad)
 WIN_SHAPE = (56, 4590, 128)    # 7 pairs doubled x 4 windows of 51x90 tokens, C=128
@@ -141,6 +169,10 @@ MASK_F32_SCALE = (320, 192)  # SOLOv2's test-scale budget in the f32 check
 MIN_DEPTH, MAX_DEPTH = 1e-3, 10.0  # the ZoeDepth config's metric range
 PF_SMALL_HW, PF_SMALL_IMAGE = (64, 96), (128, 192)  # PatchFusion's f32 check
 PF_TIMED = 2  # timed p49 frames
+MARIGOLD_TIMED = 2  # timed Marigold frames
+MIDAS_K1_PER_STEP = 24  # DPT_Large: one K1 a ViT-L block
+MARIGOLD_K1_PER_FRAME = 10 * (5 + 5)  # 10 UNet calls, 5 + 5 long self-attentions
+MARIGOLD_F32_HW = 256  # the f32 check's frame and processing size: 32x32 latent
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 # K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
 K3_TILE_Q, K3_TILE_K = 256, 128
@@ -444,9 +476,11 @@ def main():
         "rounding, and P rounded at a running max) and mean |err| <= 2^-8 of "
         "mean |ref| (those average out; a lost or unmasked key moves a whole "
         "row); f32 max and mean <= 2e-5 (f32 both sides, sums in another order)")
-    k1 = {}
+    k1 = {"at_midas_marigold": []}
     for shape, dtype in ((MAIN_SHAPE, torch.bfloat16),
                          (METRIC_SHAPE, torch.bfloat16),  # 8 rows past a tile
+                         (MIDAS_SHAPE, torch.bfloat16),  # ragged: 337 rows
+                         *((s_, torch.bfloat16) for s_ in UNET_SHAPES),
                          ((6, 100, 32), torch.float32),
                          ((6, 100, 32), torch.bfloat16),  # ragged bf16, d=32
                          ((4, 1024, 128), torch.bfloat16),
@@ -461,25 +495,36 @@ def main():
                else fa.flash_attention_ref)(q, k, v)
         max_err = report("k1", f"{list(shape)} {str(dtype)[6:]}", out, ref,
                          attn_tols(ref))
-        if shape in (MAIN_SHAPE, METRIC_SHAPE):
+        if shape in (MIDAS_SHAPE, *UNET_SHAPES):
+            # the ragged key tile left unmasked: zero keys and values up to
+            # the next multiple of K1's key tile join every row's softmax
+            pad = -shape[1] % K1_TILE_K
+            kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
+            must_fail("k1", f"{list(shape)} with its last key tile unmasked "
+                      f"({pad} zero keys)", out,
+                      plain_p_bf16(F.pad(q, (0, 0, 0, pad)), kp, vp)[:, :shape[1]],
+                      attn_tols(ref))
+        if shape in SDPA_VIEW:
             B, N, d = shape
             ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
             plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
-            q4, k4, v4 = (t.view(8, 16, N, d) for t in (q, k, v))
+            q4, k4, v4 = (t.view(*SDPA_VIEW[shape], N, d) for t in (q, k, v))
             lib_ms = library_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
             bound_ms, bound_by = bound(4 * B * N * N * d, nbytes(q, k, v, out))
             timing = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
             if shape == MAIN_SHAPE:
                 k1.update(timing)
-            else:
+            elif shape == METRIC_SHAPE:
                 k1["at_metric_core"] = dict(shape=list(shape), **timing)
-            say("k1", f"time at {list(shape)} bf16: kernel {ms:.3f} ms "
+            else:
+                k1["at_midas_marigold"].append(dict(shape=list(shape), **timing))
+            say("k1", f"time at {list(shape)} bf16: kernel {ms:.4f} ms "
                 f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
                 f"{bound_ms / ms:.1%} of the bound), plain "
-                f"{plain_ms:.3f} ms, scaled_dot_product_attention "
-                f"{lib_ms} ms on [8, 16, {N}, {d}], bound {bound_ms:.3f} ms "
-                f"({bound_by}), on {card}")
+                f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+                f"{lib_ms} ms on {[*SDPA_VIEW[shape], N, d]}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), on {card}")
         del q, k, v, out, ref
     torch.cuda.empty_cache()
 
@@ -550,14 +595,7 @@ def main():
     # to bf16: K1's distance to the plain version must stay within twice its
     # distance in mean, 99.9th percentile and max.
     layers = []
-
-    def k1_checked(q, k, v):
-        out = fa.flash_attention(q, k, v)
-        ref = plain_p_bf16(q, k, v)
-        tols = fa.bf16_bounds(ref)
-        max_err, mean_err, ok = within(out, ref, tols)
-        layers.append((max_err / tols[0], mean_err / tols[1], ok))
-        return out
+    k1_checked = layer_checked(layers, plain_p_bf16)
 
     x1 = torch.from_numpy(frames[:1]).cuda()
     depth = {}
@@ -1387,11 +1425,13 @@ def main():
 
     beit_counts = beit_paths(runtime, frames, card, rng, zero_counts,
                              read_counts, per_path)
+    depth_counts = depth_band_paths(runtime, frames, card, rng, zero_counts,
+                                    read_counts, per_path, k1)
 
     runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
             "flow_raft": raft_counts, "probe": probe_counts,
             "depth_anything_metric": metric_counts, "mask": mask_counts,
-            "fused_3band": fused_counts, **beit_counts}
+            "fused_3band": fused_counts, **beit_counts, **depth_counts}
     launches = {key: sum(c[key] for c in runs.values()) for key in counters}
     by_path = {key: {path: c[key] for path, c in runs.items()}
                for key in counters}
@@ -1620,6 +1660,215 @@ def beit_paths(runtime, frames, card, rng, zero_counts, read_counts, per_path):
         f"bands; heat {list(heat.shape)} {heat.dtype}; no kernel of csrc/; "
         f"peak memory {peak:.2f} GiB; on {card}")
     del model, mstep
+    torch.cuda.empty_cache()
+    return counts
+
+
+def layer_checked(layers, plain_p_bf16):
+    """K1 that holds each call to the plain version with P rounded to bf16
+    under its bounds, recording (max/tol, mean/tol, ok) in `layers`."""
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+
+    def k1_checked(q, k, v):
+        out = fa.flash_attention(q, k, v)
+        ref = plain_p_bf16(q, k, v)
+        tols = fa.bf16_bounds(ref)
+        max_err, mean_err, ok = within(out, ref, tols)
+        layers.append((max_err / tols[0], mean_err / tols[1], ok))
+        return out
+
+    return k1_checked
+
+
+def depth_band_paths(runtime, frames, card, rng, zero_counts, read_counts,
+                     per_path, k1):
+    """Phases 24-27: MiDaS (DPT_Large, v2.1) and Marigold.
+    -> {path: launch counts}."""
+    import functools
+
+    from prisma_tpu_torch.bands import (depth_base, depth_marigold_band,
+                                        depth_midas_band)
+    from prisma_tpu_torch.models import marigold as mg
+    from prisma_tpu_torch.models import midas, sd2
+    from prisma_tpu_torch.ops import nn as pnn
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+    from prisma_tpu_torch.weights import store
+
+    from prisma_tpu_torch.runtime.config import RuntimeConfig
+
+    plain_p_bf16 = functools.partial(fa.flash_attention_ref, round_p=True)
+    counts = {}
+    x1 = torch.from_numpy(frames[:1])
+    names = {"midas3": "DPT_Large, ViT-L/16 at 384x224: 337 tokens",
+             "midas2": "MiDaS v2.1, ResNeXt-101 32x8d at 384x224"}
+    cpu_rt = RuntimeConfig(random_weights=True, device="cpu")
+
+    def f32_check(phase, what, cpu_fn, gpu_fn, expect):
+        with torch.inference_mode():
+            d_cpu = cpu_fn()
+            zero_counts()
+            d_gpu = gpu_fn().cpu()
+        got = read_counts()
+        err = float((d_gpu - d_cpu).abs().max())
+        tol = 1e-4 * float(d_cpu.abs().max())
+        ok = (got == expect and bool(torch.isfinite(d_gpu).all())
+              and err <= tol)
+        say(phase, f"{what}: max |gpu - cpu| {err:.3e}, tol {tol:.3e} (1e-4 "
+            f"of the scale {float(d_cpu.abs().max()):.4f}: f32 both sides, "
+            f"sums in another order); launches {got} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{phase}: {what} on the card disagrees with the CPU")
+        return err
+
+    # 24. MiDaS in f32 on the card (TF32 off) against the CPU, full width,
+    # one 1080p frame: DPT_Large (24 f32 K1) and v2.1 (no kernel)
+    for version, infer_fn, n_k1 in (("midas3", midas.infer, MIDAS_K1_PER_STEP),
+                                    ("midas2", midas.infer_v2, 0)):
+        _arch, cpu_m = store.load_midas(cpu_rt, version)
+        gpu_m = copy.deepcopy(cpu_m).cuda()
+        f32_check("midas-f32", f"{version} ({names[version]}; decoder 256) "
+                  f"on one {FRAME_HW[0]}x{FRAME_HW[1]} frame, f32",
+                  lambda: infer_fn(cpu_m, x1), lambda: infer_fn(gpu_m, x1.cuda()),
+                  per_path(K1=n_k1))
+        del cpu_m, gpu_m
+    torch.cuda.empty_cache()
+
+    # 25. MiDaS at full width: the fused video step at batch 8, DPT_Large
+    # (midas3) then v2.1 (midas2)
+    for version, key, n_k1 in (("midas3", "depth_midas_dpt", MIDAS_K1_PER_STEP),
+                               ("midas2", "depth_midas_v2", 0)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, infer, flip = depth_midas_band.build_infer(runtime, version)
+        step = depth_base.make_step(model, infer, flip, need_depth=False)
+        step(frames)  # warm-up
+        setup = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = [step(frames) for _ in range(TIMED_STEPS)]
+        elapsed = time.perf_counter() - t0
+        counts[key] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if counts[key] != per_path(K1=n_k1 * TIMED_STEPS):
+            fail(f"{version} launches in {TIMED_STEPS} steps: {counts[key]}, "
+                 f"expected {n_k1} K1 a step")
+        for out in outs:
+            if (out["heat"].shape != (BATCH, *FRAME_HW, 3)
+                    or not (np.isfinite(out["min"]).all()
+                            and (out["min"] < out["max"]).all())):
+                fail(f"{version} outputs: heat {out['heat'].shape}, min/max "
+                     f"{out['min']} {out['max']}")
+        say("midas", f"{version} ({names[version]}; bf16, random weights; "
+            f"set-up and warm-up {setup:.2f} s): "
+            f"{BATCH * TIMED_STEPS / elapsed:.2f} frames/s "
+            f"({elapsed / TIMED_STEPS * 1e3:.1f} ms per batch-8 step, host "
+            f"clock, H2D and D2H included); launches {counts[key]} "
+            f"({n_k1} K1 a step) ok; peak memory {peak:.2f} GiB; on {card}")
+        if n_k1:
+            layers = []
+            depth = {}
+            with torch.inference_mode():
+                for name, attn in (("k1", layer_checked(layers, plain_p_bf16)),
+                                   ("plain", fa.flash_attention_ref),
+                                   ("plain_p_bf16", plain_p_bf16)):
+                    pnn.flash_attention = attn
+                    try:
+                        depth[name] = infer(model, x1.cuda())
+                    finally:
+                        pnn.flash_attention = fa.flash_attention
+            ok = len(layers) == n_k1 and all(r[2] for r in layers)
+            say("midas", f"frame 0, K1 against the plain version with P "
+                f"rounded to bf16 at each of {len(layers)} layers: worst "
+                f"|err| / tol, max {max(r[0] for r in layers):.3f}, mean "
+                f"{max(r[1] for r in layers):.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("K1 disagrees with its plain version on DPT_Large's "
+                     "activations")
+            null_check("midas", "disparity", depth["k1"], depth["plain"],
+                       depth["plain_p_bf16"],
+                       float(depth["plain"].max() - depth["plain"].min()))
+        del model, step, outs
+        torch.cuda.empty_cache()
+
+    # 26. Marigold at full width on one 1080p frame: 10 DDIM steps x 10
+    # members at 768 (768x432, a 96x54 latent), bf16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, infer, _flip = depth_marigold_band.build_infer(runtime)
+    say("marigold", f"SD2 UNet (320, 640, 1280, 1280) + VAE (128, 256, 512, "
+        f"512), bf16; the CLIP text tower (1024 wide, 23 layers) run once "
+        f"on the card for the empty prompt; random weights: set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    xg = x1.cuda()
+    with torch.inference_mode():
+        infer(model, xg)  # warm-up
+    zero_counts()
+    times = []
+    with torch.inference_mode():
+        for _ in range(MARIGOLD_TIMED):
+            depth, sec = synced(lambda: infer(model, xg))
+            times.append(sec)
+    counts["depth_marigold"] = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_frame = MARIGOLD_K1_PER_FRAME
+    if counts["depth_marigold"] != per_path(K1=per_frame * MARIGOLD_TIMED):
+        fail(f"Marigold launches in {MARIGOLD_TIMED} frames: "
+             f"{counts['depth_marigold']}, expected {per_frame} K1 a frame")
+    if (depth.shape != (1, *FRAME_HW) or not bool(torch.isfinite(depth).all())
+            or float(depth.max() - depth.min()) <= 0):
+        fail(f"Marigold depth {tuple(depth.shape)}, range "
+             f"{float(depth.min())}-{float(depth.max())}")
+    say("marigold", f"1080p frame, 10 steps x 10 members at 768: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s a frame, mean "
+        f"{np.mean(times):.3f} s (host clock, synchronised, H2D and the "
+        f"1080p depth included); launches {counts['depth_marigold']} "
+        f"({per_frame} K1 a frame: [50, 5184, 64] and [100, 1296, 64], 50 "
+        f"each; K1 there {50 * sum(r['ms'] for r in k1['at_midas_marigold'][1:]):.1f}"
+        f" ms at its own times); depth finite, in [{float(depth.min()):.4f}, "
+        f"{float(depth.max()):.4f}]; peak memory {peak:.2f} GiB; on {card}")
+    # one frame again: every K1 call of its 10 UNet calls held to the plain
+    # version; then the depth with the plain attention in place of K1, and
+    # with the plain attention that rounds P to bf16 (the null distance)
+    layers = []
+    depth = {}
+    with torch.inference_mode():
+        for name, attn in (("k1", layer_checked(layers, plain_p_bf16)),
+                           ("plain", fa.flash_attention_ref),
+                           ("plain_p_bf16", plain_p_bf16)):
+            sd2.flash_attention = attn
+            try:
+                depth[name] = infer(model, xg)
+            finally:
+                sd2.flash_attention = fa.flash_attention
+    ok = len(layers) == per_frame and all(r[2] for r in layers)
+    say("marigold", f"K1 against the plain version with P rounded to bf16 at "
+        f"each of its {len(layers)} calls of one frame: worst |err| / tol, max "
+        f"{max(r[0] for r in layers):.3f}, mean {max(r[1] for r in layers):.3f}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("K1 disagrees with its plain version on the UNet's activations")
+    null_check("marigold", "depth", depth["k1"], depth["plain"],
+               depth["plain_p_bf16"],
+               float(depth["plain"].max() - depth["plain"].min()))
+
+    # 27. Marigold in f32 on the card (TF32 off) against the CPU: the
+    # full-width UNet, VAE and ensembling (the weights above, widened) on a
+    # 256x256 frame at 256 (a 32x32 latent: 1024 tokens, so the f32 K1
+    # runs), 2 members, 2 steps; the same member latents on both sides
+    cpu_mg = copy.deepcopy(model).cpu().float()
+    del model
+    torch.cuda.empty_cache()
+    gpu_mg = copy.deepcopy(cpu_mg).cuda()
+    hw = MARIGOLD_F32_HW
+    small = torch.from_numpy(rng.integers(0, 256, size=(hw, hw, 3),
+                                          dtype=np.uint8))
+    run = functools.partial(mg.infer, denoising_steps=2, ensemble_size=2,
+                            processing_res=hw, seed=7)
+    f32_check("marigold-f32", f"Marigold (full UNet and VAE) on a {hw}x{hw} "
+              f"frame at {hw}, 2 members x 2 steps, f32",
+              lambda: run(cpu_mg, small), lambda: run(gpu_mg, small.cuda()),
+              per_path(K1=2 * 5))
+    del cpu_mg, gpu_mg
     torch.cuda.empty_cache()
     return counts
 

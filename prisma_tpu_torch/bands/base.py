@@ -16,23 +16,16 @@ from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.utils import meta
 
 # the bands the port runs, by the module of prisma_tpu_torch.bands that
-# holds each one's run(); a band of the JAX package missing here is not
-# ported yet
+# holds each one's run()
 BAND_MODULES = {"depth_anything": "depth_anything_band",
+                "depth_marigold": "depth_marigold_band",
+                "depth_midas": "depth_midas_band",
                 "depth_patchfusion": "depth_patchfusion_band",
                 "depth_zoedepth": "depth_zoedepth_band",
                 "flow_gmflow": "flow_gmflow_band",
                 "flow_raft": "flow_raft_band",
                 "mask_mmdet": "mask_band",
                 "camera_colmap": "camera_colmap_band"}
-
-
-def not_ported(bands) -> str:
-    """'' if the port has every band of `bands`, else a message naming the
-    ones it lacks."""
-    missing = [b for b in bands if b not in BAND_MODULES]
-    return "" if not missing else (
-        f"not ported yet: {', '.join(missing)} (see ROADMAP.md queue 1)")
 
 
 @dataclass

@@ -24,15 +24,14 @@ import importlib
 import numpy as np
 import torch
 
-from prisma_tpu_torch.bands.base import BAND_MODULES, not_ported, resolve
+from prisma_tpu_torch.bands.base import BAND_MODULES, resolve
 from prisma_tpu_torch.io.video import VideoReader
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 
 # the video depth bands whose step is one model call (depth_base.make_step),
-# as the JAX package fuses them; the port fuses those it has
-_FUSABLE_DEPTH_BANDS = ("depth_anything", "depth_midas", "depth_zoedepth")
-FUSED_DEPTH_BANDS = tuple(b for b in _FUSABLE_DEPTH_BANDS
-                          if b in BAND_MODULES)
+# as the JAX package fuses them; marigold and patchfusion run after the
+# fused steps, one frame at a time
+FUSED_DEPTH_BANDS = ("depth_anything", "depth_midas", "depth_zoedepth")
 
 
 def _resolve_or_skip(band, input_path, runtime, subpath="",
@@ -113,10 +112,8 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
     runtime = runtime or RuntimeConfig()
     runtime.resolve_device()  # no card where one is asked for: raise first
     if depth_band is not None and depth_band not in FUSED_DEPTH_BANDS:
-        raise ValueError(
-            f"{depth_band} is not fusable here (fused set: "
-            f"{FUSED_DEPTH_BANDS}; "
-            f"{not_ported(_FUSABLE_DEPTH_BANDS)})")
+        raise ValueError(f"{depth_band} is not fusable (fused set: "
+                         f"{FUSED_DEPTH_BANDS})")
     ran: dict[str, bool] = {}
 
     # resolve everything first: an existing output skips before any weight

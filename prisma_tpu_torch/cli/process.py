@@ -7,8 +7,7 @@
 Flag-compatible with the reference `process.py` (process.py:76-98) and the
 JAX package's, plus --device; bands run in-process instead of one subprocess
 per band (process.py:60-73), by default on the card. The folder layout and
-metadata.json are the JAX package's. A band the port lacks
-(bands/base.BAND_MODULES) raises before any work.
+metadata.json are the JAX package's.
 """
 
 from __future__ import annotations
@@ -42,21 +41,12 @@ SUBFOLDERS = {
 }
 
 
-def check_ported(bands) -> None:
-    """Raise, before any work, for a band the port lacks."""
-    from prisma_tpu_torch.bands.base import not_ported
-    msg = not_ported(bands)
-    if msg:
-        raise NotImplementedError(msg)
-
-
 def run_band(band: str, folder: str, runtime, subpath: bool = False,
              **kwargs) -> bool:
     import importlib
 
     from prisma_tpu_torch.bands.base import BAND_MODULES
     print(f"\n#  {band.upper()}")
-    check_ported([band])
     impl = importlib.import_module(
         f"prisma_tpu_torch.bands.{BAND_MODULES[band]}").run
     if band == "camera_colmap":
@@ -136,9 +126,6 @@ def main(argv=None):
                             random_weights=args.random_weights,
                             segment_frames=args.segment_frames,
                             overwrite=args.force, device=args.device)
-    depth = args.depth or (DEPTH_VIDEO_DEFAULT if meta.is_video(args.input)
-                           else DEPTH_IMAGE_DEFAULT)
-    check_ported({"all": DEPTH_BANDS, "none": []}.get(depth, [depth]))
     runtime.resolve_device()  # no card where one is asked for: raise first
 
     input_path = args.input

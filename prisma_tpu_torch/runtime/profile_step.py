@@ -3,12 +3,14 @@
     python -m prisma_tpu_torch.runtime.profile_step [--band depth_anything]
         [--steps 5] [--out FILE]
 
-    --band: depth_anything, depth_anything_metric, depth_patchfusion,
-    depth_zoedepth, mask, flow_gmflow or flow_raft
+    --band: depth_anything, depth_anything_metric, depth_marigold,
+    depth_midas, depth_patchfusion, depth_zoedepth, mask, flow_gmflow or
+    flow_raft
 
 Builds the band's step as chip_smoke.py does (bf16, random weights from a
 seed, uint8 1080p frames at batch 8; depth_patchfusion one frame a step, at
-p49) and prints:
+p49; depth_marigold one frame a step, 10 steps x 10 members at 768) and
+prints:
 
 - the host-clock time of whole steps (H2D and D2H included);
 - the device time of each stage on a batch already on the card, from CUDA
@@ -19,7 +21,11 @@ p49) and prints:
   the bicubic back, each over both passes; depth_patchfusion: the coarse
   pass, then on one batch of 8 tiles the fine core, its projections, the
   ROIs and fusion convs, UNet + G2L and the bins head, and the whole frame;
-  mask: preprocess,
+  depth_midas (DPT_Large, midas3): the input resize + normalize, the
+  ViT-L/16, the MiDaS decoder, the bicubic back, the heat; depth_marigold:
+  the resize to 768 and the VAE encode, one UNet call over the 10 members
+  and all 10, the VAE decode, the ensembling (BFGS, medians), the epilogue,
+  the whole frame; mask: preprocess,
   ResNet-101, FPN, head, the eight frames' slabs (top-K, dynamic convs,
   matrix NMS, the upsample to 1080p), composite and SDF; flow_gmflow: input
   resize, backbone, transformer, global
@@ -519,9 +525,100 @@ def flow_raft_step(runtime: RuntimeConfig, frames: np.ndarray):
     return step, stages
 
 
+def depth_midas_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the batch already on the card}):
+    DPT_Large (midas3) as the fused video step runs it (384x224 at 1080p:
+    24x14 patches + cls, 24 K1 a step)."""
+    from prisma_tpu_torch.bands import depth_base, depth_midas_band
+    from prisma_tpu_torch.models import midas, vit
+    from prisma_tpu_torch.ops import encode as enc
+
+    model, infer, flip = depth_midas_band.build_infer(runtime, "midas3")
+    step = depth_base.make_step(model, infer, flip, need_depth=False)
+    step(frames)  # warm-up
+    dtype = runtime.resolve_dtype()
+    x = torch.from_numpy(frames).cuda()
+    v = model.pretrained.model
+    with torch.inference_mode():
+        img = midas.prepare(x, dtype)
+        depth = infer(model, x)
+        t = {"prepare": cuda_ms(lambda: midas.prepare(x, dtype)),
+             "vit": cuda_ms(lambda: vit.get_intermediate_layers(
+                 v, img, indices=midas.hooks(model), norm=False,
+                 pos_embed_method="linear")),
+             "model": cuda_ms(lambda: midas.forward(model, img)),
+             "infer": cuda_ms(lambda: infer(model, x)),
+             "heat": cuda_ms(lambda: enc.depth_heat(depth, flip))}
+    return step, {"input resize + normalize": t["prepare"],
+                  "ViT-L/16 (24 K1)": t["vit"],
+                  "MiDaS decoder": t["model"] - t["vit"],
+                  "bicubic back": t["infer"] - t["prepare"] - t["model"],
+                  "heat epilogue": t["heat"]}
+
+
+def depth_marigold_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms}): Marigold on the first frame, 10 DDIM
+    steps x 10 members at 768 (768x432, a 96x54 latent)."""
+    from prisma_tpu_torch.bands import depth_base, depth_marigold_band
+    from prisma_tpu_torch.models import marigold as mg
+    from prisma_tpu_torch.models import sd2
+    from prisma_tpu_torch.ops.resize import resize2d
+
+    band = depth_marigold_band
+    model, infer, flip = band.build_infer(runtime)
+    one = frames[:1]
+    band_step = depth_base.make_step(model, infer, flip, need_depth=False,
+                                     fused=False)
+    band_step(one)  # warm-up
+
+    def step(_frames):
+        return band_step(one)
+
+    dtype = runtime.resolve_dtype()
+    H, W = one.shape[1:3]
+    w2, h2 = mg.processing_size(W, H, band.PROCESSING_RESOLUTION)
+    E, steps = band.ENSEMBLE_SIZE, band.DENOISE_STEPS
+    x = torch.from_numpy(one).cuda()
+
+    def encode():
+        rgb = resize2d(x[:1].float() / 255.0, (h2, w2), method="cubic_aa")
+        return sd2.vae_encode(model.vae, rgb.to(dtype).permute(0, 3, 1, 2))
+
+    with torch.inference_mode():
+        rgb_latent = encode() * mg.RGB_LATENT_SCALE
+        lat = mg.member_latents(0, E, (4, h2 // 8, w2 // 8), "cuda").to(dtype)
+        unet_in = torch.cat([rgb_latent.expand(E, -1, -1, -1), lat], 1)
+        ctx = model.empty_text_embed.to(dtype).expand(E, -1, -1)
+        tb = torch.full((E,), 501, dtype=torch.int32, device="cuda")
+        preds = (sd2.vae_decode(model.vae, lat).float().mean(1)
+                 .clamp(-1, 1) + 1) / 2
+        aligned, _ = mg.ensemble_depths_device(preds)
+        t = {"encode": cuda_ms(encode, 3),
+             "unet": cuda_ms(lambda: sd2.unet_forward(model.unet, unet_in, tb,
+                                                      ctx), 3),
+             "decode": cuda_ms(lambda: sd2.vae_decode(
+                 model.vae, lat / mg.DEPTH_LATENT_SCALE), 2),
+             "ensemble": cuda_ms(lambda: mg.ensemble_depths_device(preds), 2),
+             "epilogue": cuda_ms(lambda: mg.epilogue(aligned, (H, W))),
+             "frame": cuda_ms(lambda: infer(model, x), 1)}
+    return step, {
+        "resize to 768 + VAE encode": t["encode"],
+        f"one UNet call, {E} members": t["unet"],
+        f"{steps} UNet calls": steps * t["unet"],
+        f"VAE decode, {E} members": t["decode"],
+        "ensembling (BFGS, medians)": t["ensemble"],
+        "epilogue (rescale, bicubic AA to 1080p)": t["epilogue"],
+        "the whole frame": t["frame"],
+        "the rest (DDIM updates, casts, latents)":
+            t["frame"] - t["encode"] - steps * t["unet"] - t["decode"]
+            - t["ensemble"] - t["epilogue"]}
+
+
 # band: (step builder, unit, items a step)
 STEPS = {"depth_anything": (depth_anything_step, "frames", BATCH),
          "depth_anything_metric": (depth_anything_metric_step, "frames", BATCH),
+         "depth_marigold": (depth_marigold_step, "frames", 1),
+         "depth_midas": (depth_midas_step, "frames", BATCH),
          "depth_patchfusion": (depth_patchfusion_step, "frames", 1),
          "depth_zoedepth": (depth_zoedepth_step, "frames", BATCH),
          "mask": (mask_step, "frames", BATCH),

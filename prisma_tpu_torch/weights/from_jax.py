@@ -2,12 +2,16 @@
 
 `depth_anything_state_dict`, `metric_depth_anything_state_dict`,
 `gmflow_state_dict`, `raft_state_dict`, `solov2_state_dict`,
-`zoed_state_dict` and `patchfusion_state_dict` invert
+`zoed_state_dict`, `patchfusion_state_dict`, `midas_dpt_state_dict`,
+`midas2_state_dict`, `sd2_unet_state_dict`, `sd_vae_state_dict` and
+`clip_text_state_dict` invert
 `prisma_tpu.weights.torch_convert.convert_depth_anything`,
 `convert_metric_depth_anything`, `convert_gmflow`, `convert_raft`,
-`convert_solov2`, `convert_zoed` and `convert_patchfusion`: they take the JAX parameters as numpy arrays and return the
-reference checkpoint's keys and layouts, so that tests can run both packages
-on the same weights.
+`convert_solov2`, `convert_zoed`, `convert_patchfusion`,
+`convert_midas_dpt`, `convert_midas2`, `convert_sd2_unet`,
+`convert_sd_vae` and `convert_clip_text`: they take the JAX parameters as
+numpy arrays and return the reference checkpoint's keys and layouts, so
+that tests can run both packages on the same weights.
 """
 
 from __future__ import annotations
@@ -366,4 +370,170 @@ def patchfusion_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
             _linear(sd, kb + "mlp.fc2", b["mlp"]["fc2"])
         _norm(sd, g + "g2l_layer_norm", g2l["norm"])
     sd.update(bins_head_state_dict(params_np["head"]))
+    return sd
+
+
+def midas_dpt_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX DPT_Large tree ({"vit", "readout", ...}) -> the hub
+    checkpoint's `pretrained.model.*` (timm's ViT, no LayerScale) and
+    decoder keys."""
+    v = params_np["vit"]
+    sd: dict = {}
+    w = np.asarray(v["patch_embed"]["w"])  # [(kh, kw, c), D]
+    patch = int(round((w.shape[0] // 3) ** 0.5))
+    sd["patch_embed.proj.weight"] = _t(
+        w.reshape(patch, patch, -1, w.shape[1]).transpose(3, 2, 0, 1))
+    sd["patch_embed.proj.bias"] = _t(v["patch_embed"]["b"])
+    sd["cls_token"] = _t(v["cls_token"])
+    sd["pos_embed"] = _t(v["pos_embed"])
+    _norm(sd, "norm", v["norm"])
+    for i, b in enumerate(v["blocks"]):
+        k = f"blocks.{i}."
+        _norm(sd, k + "norm1", b["norm1"])
+        _linear(sd, k + "attn.qkv", b["attn"]["qkv"])
+        _linear(sd, k + "attn.proj", b["attn"]["proj"])
+        _norm(sd, k + "norm2", b["norm2"])
+        _linear(sd, k + "mlp.fc1", b["mlp"]["fc1"])
+        _linear(sd, k + "mlp.fc2", b["mlp"]["fc2"])
+    out = {"pretrained.model." + k: t for k, t in sd.items()}
+    out.update(midas_decoder_state_dict(params_np))
+    return out
+
+
+def midas2_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX MiDaS v2.1 tree -> the hub MidasNet checkpoint's keys: the
+    ResNeXt stem at `pretrained.layer1.{0,1}`, its first stage at
+    `pretrained.layer1.4`, the others at `pretrained.layer{2-4}` (batch norms
+    unfolded as `_unfold_bn` does); bias-free `scratch.layer{1-4}_rn`,
+    `scratch.refinenet{1-4}.resConfUnit{1,2}`, `scratch.output_conv`."""
+    sd: dict = {}
+    for k, t in resnet_state_dict(params_np["backbone"]).items():
+        if k.startswith("conv1."):
+            k = "layer1.0." + k[len("conv1."):]
+        elif k.startswith("bn1."):
+            k = "layer1.1." + k[len("bn1."):]
+        elif k.startswith("layer1."):
+            k = "layer1.4." + k[len("layer1."):]
+        sd["pretrained." + k] = t
+    for i in range(4):
+        _conv(sd, f"scratch.layer{i + 1}_rn", params_np["scratch"][i])
+        r = params_np["refinenet"][i]
+        k = f"scratch.refinenet{i + 1}."
+        for unit, name in (("rcu1", "resConfUnit1"), ("rcu2", "resConfUnit2")):
+            _conv(sd, k + name + ".conv1", r[unit]["conv1"])
+            _conv(sd, k + name + ".conv2", r[unit]["conv2"])
+    for j, name in ((0, "head0"), (2, "head2"), (4, "head4")):
+        _conv(sd, f"scratch.output_conv.{j}", params_np[name])
+    return sd
+
+
+def _res_block(sd: dict, key: str, p: dict) -> None:
+    _norm(sd, key + ".norm1", p["norm1"])
+    _conv(sd, key + ".conv1", p["conv1"])
+    _norm(sd, key + ".norm2", p["norm2"])
+    _conv(sd, key + ".conv2", p["conv2"])
+    if "time_emb" in p:
+        _linear(sd, key + ".time_emb_proj", p["time_emb"])
+    if "shortcut" in p:
+        _conv(sd, key + ".conv_shortcut", p["shortcut"])
+
+
+def _attn(sd: dict, key: str, p: dict) -> None:
+    for name, proj in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                       ("out", "to_out.0")):
+        _linear(sd, f"{key}.{proj}", p[name])
+
+
+def _spatial(sd: dict, key: str, p: dict) -> None:
+    _norm(sd, key + ".norm", p["norm"])
+    _linear(sd, key + ".proj_in", p["proj_in"])
+    _linear(sd, key + ".proj_out", p["proj_out"])
+    for i, b in enumerate(p["blocks"]):
+        t = f"{key}.transformer_blocks.{i}"
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, f"{t}.{n}", b[n])
+        _attn(sd, t + ".attn1", b["attn1"])
+        _attn(sd, t + ".attn2", b["attn2"])
+        _linear(sd, t + ".ff.net.0.proj", b["ff"]["proj"])
+        _linear(sd, t + ".ff.net.2", b["ff"]["out"])
+
+
+def _blocks(sd: dict, prefix: str, blocks: list) -> None:
+    for bi, block in enumerate(blocks):
+        b = f"{prefix}.{bi}"
+        for j, r in enumerate(block["resnets"]):
+            _res_block(sd, f"{b}.resnets.{j}", r)
+        for j, a in enumerate(block.get("attns", [])):
+            _spatial(sd, f"{b}.attentions.{j}", a)
+        if "down" in block:
+            _conv(sd, f"{b}.downsamplers.0.conv", block["down"])
+        if "up" in block:
+            _conv(sd, f"{b}.upsamplers.0.conv", block["up"])
+
+
+def sd2_unet_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX SD2 UNet tree -> the snapshot's `unet/` keys (diffusers)."""
+    sd: dict = {}
+    _linear(sd, "time_embedding.linear_1", params_np["time1"])
+    _linear(sd, "time_embedding.linear_2", params_np["time2"])
+    _conv(sd, "conv_in", params_np["conv_in"])
+    _blocks(sd, "down_blocks", params_np["down"])
+    mid = params_np["mid"]
+    _res_block(sd, "mid_block.resnets.0", mid["res1"])
+    _spatial(sd, "mid_block.attentions.0", mid["attn"])
+    _res_block(sd, "mid_block.resnets.1", mid["res2"])
+    _blocks(sd, "up_blocks", params_np["up"])
+    _norm(sd, "conv_norm_out", params_np["norm_out"])
+    _conv(sd, "conv_out", params_np["conv_out"])
+    return sd
+
+
+def sd_vae_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX VAE tree ({"enc", "dec"}) -> the snapshot's `vae/` keys
+    (diffusers, the mid-block attention as `group_norm` and `to_*`)."""
+    sd: dict = {}
+    for side, name in (("enc", "encoder"), ("dec", "decoder")):
+        p = params_np[side]
+        _conv(sd, name + ".conv_in", p["conv_in"])
+        _blocks(sd, name + (".down_blocks" if side == "enc" else ".up_blocks"),
+                p["down" if side == "enc" else "up"])
+        _res_block(sd, name + ".mid_block.resnets.0", p["mid"]["res1"])
+        _res_block(sd, name + ".mid_block.resnets.1", p["mid"]["res2"])
+        a = name + ".mid_block.attentions.0"
+        _norm(sd, a + ".group_norm", p["mid"]["attn"]["norm"])
+        _attn(sd, a, p["mid"]["attn"])
+        _norm(sd, name + ".conv_norm_out", p["norm_out"])
+        _conv(sd, name + ".conv_out", p["conv_out"])
+    _conv(sd, "quant_conv", params_np["enc"]["quant"])
+    _conv(sd, "post_quant_conv", params_np["dec"]["post_quant"])
+    return sd
+
+
+def clip_text_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX CLIP text tree -> the snapshot's `text_encoder/` keys
+    (transformers' CLIPTextModel, `text_model.*`)."""
+    sd: dict = {"text_model.embeddings.token_embedding.weight":
+                _t(params_np["token_embed"]),
+                "text_model.embeddings.position_embedding.weight":
+                _t(params_np["pos_embed"])}
+    for i, b in enumerate(params_np["blocks"]):
+        k = f"text_model.encoder.layers.{i}."
+        _norm(sd, k + "layer_norm1", b["norm1"])
+        for name in ("q", "k", "v"):
+            _linear(sd, f"{k}self_attn.{name}_proj", b[name])
+        _linear(sd, k + "self_attn.out_proj", b["out"])
+        _norm(sd, k + "layer_norm2", b["norm2"])
+        _linear(sd, k + "mlp.fc1", b["fc1"])
+        _linear(sd, k + "mlp.fc2", b["fc2"])
+    _norm(sd, "text_model.final_layer_norm", params_np["final_norm"])
+    return sd
+
+
+def marigold_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX Marigold tree's UNet and VAE -> the port's `unet.*` and
+    `vae.*` keys (its empty prompt's embedding is a buffer, set apart)."""
+    sd = {"unet." + k: v
+          for k, v in sd2_unet_state_dict(params_np["unet"]).items()}
+    sd.update({"vae." + k: v
+               for k, v in sd_vae_state_dict(params_np["vae"]).items()})
     return sd

@@ -13,17 +13,22 @@ RuntimeConfig.models_dir):
   solov2_r101_fpn_3x_coco*.pth           mmdet checkpoint, state_dict under 'state_dict'
   ZoeD_M12_N.pt                          ZoeD_N (BEiT-L core + bins head), under 'model'
   patchfusion_u4k.pt                     PatchFusion, state_dict (or under 'model')
+  dpt_large_384.pt                       MiDaS DPT_Large (hub DPTDepthModel), state_dict
+  midas_v21_384.pt                       MiDaS v2.1 (hub MidasNet), state_dict
+  marigold/{unet,vae,text_encoder}/*.bin the Bingxin/Marigold diffusers snapshot
 
 With runtime.random_weights=True models initialize randomly from a seeded
 torch.Generator instead: same shapes, no files needed (the BEiT depth of
 ZoeD_N from PRISMA_ZOED_DEPTH, PatchFusion's BEiT depth and model size from
-PRISMA_PF_DEPTH and PRISMA_PF_SIZE, as the JAX package's loaders read them).
+PRISMA_PF_DEPTH and PRISMA_PF_SIZE, a tiny Marigold with
+PRISMA_MARIGOLD_TINY=1, as the JAX package's loaders read them).
 """
 
 from __future__ import annotations
 
 import fnmatch
 import glob
+import json
 import os
 
 import torch
@@ -31,6 +36,9 @@ import torch
 from prisma_tpu_torch.models import beit
 from prisma_tpu_torch.models import depth_anything as da
 from prisma_tpu_torch.models import gmflow as gm
+from prisma_tpu_torch.models import marigold as mg
+from prisma_tpu_torch.models import midas
+from prisma_tpu_torch.models import sd2
 from prisma_tpu_torch.models import patchfusion as pf
 from prisma_tpu_torch.models import raft
 from prisma_tpu_torch.models import solov2
@@ -274,3 +282,200 @@ def load_patchfusion(runtime: RuntimeConfig):
             RANDOM_SEED)), hw
     return (patchfusion_from_state_dict(
         _checkpoint(runtime, "patchfusion_u4k.pt")), pf.MODEL_HW)
+
+
+# MiDaS model versions (reference depth_midas.py:26-41): both midas2 load
+# MiDaS v2.1, both midas3 DPT_Large; -small only lowers the transform target
+MIDAS_VERSIONS = ("midas2-small", "midas2", "midas3-small", "midas3")
+MIDAS_FILES = {"v2": ("midas_v21_384.pt", "midas_v21-f6b98070.pt",
+                      "model-f6b98070.pt"),
+               "dpt": ("dpt_large_384.pt", "dpt_large-midas-2f21e586.pt")}
+# timm's classifier under a DPT_Large checkpoint's backbone, which neither
+# package reads
+MIDAS_UNREAD = ("pretrained.model.head.*",)
+
+
+def midas_dpt_from_state_dict(sd: dict, device="cpu") -> midas.MidasDPT:
+    """A DPT_Large of the state_dict's widths (heads of 64 channels, the
+    position grid from pos_embed), loaded with strict=True."""
+    sd = {k: v for k, v in sd.items()
+          if not any(fnmatch.fnmatch(k, p) for p in MIDAS_UNREAD)}
+    b = "pretrained.model."
+    depth = 0
+    while f"{b}blocks.{depth}.norm1.weight" in sd:
+        depth += 1
+    pe = sd[b + "patch_embed.proj.weight"]
+    D, P = pe.shape[0], pe.shape[-1]
+    grid = int(round((sd[b + "pos_embed"].shape[1] - 1) ** 0.5))
+    cfg = pvit.ViTConfig(embed_dim=D, depth=depth, num_heads=max(1, D // 64),
+                         patch_size=P, base_img_size=grid * P,
+                         layerscale=False)
+    model = midas.build_dpt(
+        cfg, sd["scratch.layer1_rn.weight"].shape[0],
+        tuple(sd[f"pretrained.act_postprocess{i}.3.weight"].shape[0]
+              for i in range(1, 5)), device=device)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def midas2_from_state_dict(sd: dict, device="cpu") -> midas.MidasNet:
+    """A MiDaS v2.1 of the state_dict's widths, loaded with strict=True
+    (batch-norm step counters it leaves out filled in)."""
+    model = midas.build_v2(sd["scratch.layer1_rn.weight"].shape[0],
+                           width=sd["pretrained.layer1.0.weight"].shape[0],
+                           device=device)
+    return _load_strict(model, sd)
+
+
+def load_midas(runtime: RuntimeConfig, model_version: str = "midas3"):
+    """-> (arch, model f32 on the CPU) for any reference model_version:
+    "v2" (MiDaS v2.1) for midas2 / midas2-small, "dpt" (DPT_Large) for
+    midas3 / midas3-small; random from the seed, or the hub checkpoint
+    (`midas_v21_384.pt`, `dpt_large_384.pt` or their release names) loaded
+    with strict=True."""
+    if model_version not in MIDAS_VERSIONS:
+        raise ValueError(f"unknown midas model_version '{model_version}'")
+    arch = "v2" if model_version.startswith("midas2") else "dpt"
+    if runtime.random_weights:
+        gen = torch.Generator().manual_seed(RANDOM_SEED)
+        if arch == "v2":
+            return arch, midas.init_params_v2(midas.build_v2(), gen)
+        return arch, midas.init_params(midas.build_dpt(), gen)
+    for name in MIDAS_FILES[arch]:
+        path = os.path.join(runtime.models_dir, name)
+        if os.path.exists(path):
+            sd = _load_torch_state_dict(path)
+            return arch, (midas2_from_state_dict(sd) if arch == "v2"
+                          else midas_dpt_from_state_dict(sd))
+    raise FileNotFoundError(
+        f"no MiDaS {'v2.1' if arch == 'v2' else 'DPT_Large'} checkpoint under "
+        f"{runtime.models_dir}; place {MIDAS_FILES[arch][0]} there or set "
+        "runtime.random_weights=True")
+
+
+# the JAX package's tiny Marigold (PRISMA_MARIGOLD_TINY=1), with a text
+# tower of its context width
+TINY_UNET = sd2.UNetConfig(block_channels=(32, 64), cross_attention_dim=64,
+                           head_dim=16, norm_groups=8)
+TINY_VAE = sd2.VAEConfig(block_channels=(32, 64), norm_groups=8)
+TINY_TEXT = mg.CLIPTextConfig(width=64, heads=2, layers=2)
+# the text encoder's position ids (a buffer in older transformers), a
+# function of max_len
+TEXT_DERIVED = ("text_model.embeddings.position_ids",)
+# the VAE mid-block attention's names before diffusers 0.14 (and the
+# original LDM's) -> today's
+_VAE_ATTN_NAMES = {"query": "to_q", "key": "to_k", "value": "to_v",
+                   "proj_attn": "to_out.0", "q": "to_q", "k": "to_k",
+                   "v": "to_v", "proj_out": "to_out.0", "norm": "group_norm"}
+
+
+def _vae_current_names(sd: dict) -> dict:
+    """A VAE state_dict with its mid-block attentions in today's diffusers
+    names (1x1 conv weights as linear ones)."""
+    out = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if ".mid_block.attentions.0." in k and parts[-2] in _VAE_ATTN_NAMES:
+            parts[-2] = _VAE_ATTN_NAMES[parts[-2]]
+            if v.dim() == 4:
+                v = v[:, :, 0, 0]
+            k = ".".join(parts)
+        out[k] = v
+    return out
+
+
+def _snapshot_component(mdir: str, sub: str) -> dict:
+    for pat in ("diffusion_pytorch_model.bin", "pytorch_model.bin", "*.bin"):
+        matches = sorted(glob.glob(os.path.join(mdir, sub, pat)))
+        if matches:
+            return _load_torch_state_dict(matches[0])
+    raise FileNotFoundError(f"no torch weights under {mdir}/{sub}")
+
+
+def _snapshot_config(mdir: str, sub: str) -> dict:
+    """A component's config.json (diffusers / transformers), {} if absent."""
+    path = os.path.join(mdir, sub, "config.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def _unet_config(sd: dict, conf: dict) -> sd2.UNetConfig:
+    """The UNet's widths from its state_dict; its heads (diffusers'
+    `attention_head_dim`, SD2's [5, 10, 20, 20] heads a block) and groups
+    from its config, SD2's where the config is absent."""
+    bc, i = [], 0
+    while f"down_blocks.{i}.resnets.0.conv1.weight" in sd:
+        bc.append(sd[f"down_blocks.{i}.resnets.0.conv1.weight"].shape[0])
+        i += 1
+    heads = conf.get("attention_head_dim", 5)
+    heads = heads[0] if isinstance(heads, (list, tuple)) else heads
+    return sd2.UNetConfig(
+        in_channels=sd["conv_in.weight"].shape[1],
+        out_channels=sd["conv_out.weight"].shape[0], block_channels=tuple(bc),
+        cross_attention_dim=sd["down_blocks.0.attentions.0.transformer_blocks."
+                               "0.attn2.to_k.weight"].shape[1],
+        head_dim=bc[0] // heads, norm_groups=conf.get("norm_num_groups", 32))
+
+
+def marigold_from_snapshot(mdir: str, device="cpu") -> mg.Marigold:
+    """A Marigold of the snapshot's widths: `unet/` and `vae/` loaded with
+    strict=True, the empty prompt's embedding computed by `text_encoder/`
+    (loaded strictly too) on `device`. The model stays f32 on the CPU."""
+    unet_sd = _snapshot_component(mdir, "unet")
+    vae_sd = _vae_current_names(_snapshot_component(mdir, "vae"))
+    text_sd = {k: v for k, v in _snapshot_component(mdir, "text_encoder").items()
+               if k not in TEXT_DERIVED}
+    ucfg = _unet_config(unet_sd, _snapshot_config(mdir, "unet"))
+    vc, i = [], 0
+    while f"encoder.down_blocks.{i}.resnets.0.conv1.weight" in vae_sd:
+        vc.append(vae_sd[f"encoder.down_blocks.{i}.resnets.0.conv1.weight"]
+                  .shape[0])
+        i += 1
+    vcfg = sd2.VAEConfig(
+        block_channels=tuple(vc), latent_channels=vae_sd[
+            "post_quant_conv.weight"].shape[0],
+        norm_groups=_snapshot_config(mdir, "vae").get("norm_num_groups", 32))
+    model = mg.build(ucfg, vcfg)
+    model.load_state_dict({**{"unet." + k: v for k, v in unet_sd.items()},
+                           **{"vae." + k: v for k, v in vae_sd.items()}},
+                          strict=True)
+    layers = 0
+    while f"text_model.encoder.layers.{layers}.layer_norm1.weight" in text_sd:
+        layers += 1
+    emb = "text_model.embeddings."
+    tconf = _snapshot_config(mdir, "text_encoder")
+    default = mg.CLIPTextConfig()
+    text = mg.build_text(mg.CLIPTextConfig(
+        vocab=text_sd[emb + "token_embedding.weight"].shape[0],
+        width=text_sd[emb + "token_embedding.weight"].shape[1],
+        heads=tconf.get("num_attention_heads", default.heads), layers=layers,
+        max_len=text_sd[emb + "position_embedding.weight"].shape[0],
+        bos=tconf.get("bos_token_id", default.bos),
+        eos=tconf.get("eos_token_id", default.eos)))
+    text.load_state_dict(text_sd, strict=True)
+    return mg.set_text_embed(model, text.to(device))
+
+
+def load_marigold(runtime: RuntimeConfig, device="cpu") -> mg.Marigold:
+    """Marigold, f32 on the CPU, its empty prompt's embedding made by the
+    text tower on `device`: random from the seed (the tower too, at full
+    width, run once; tiny with PRISMA_MARIGOLD_TINY=1), or the
+    Bingxin/Marigold diffusers snapshot under models/marigold/ (reference
+    depth_marigold.py)."""
+    if runtime.random_weights:
+        tiny = os.environ.get("PRISMA_MARIGOLD_TINY", "0") == "1"
+        gen = torch.Generator().manual_seed(RANDOM_SEED)
+        model = mg.init_params(mg.build(*((TINY_UNET, TINY_VAE) if tiny
+                                          else ())), gen)
+        text = mg.init_text(mg.build_text(TINY_TEXT if tiny
+                                          else mg.CLIPTextConfig()), gen)
+        return mg.set_text_embed(model, text.to(device))
+    mdir = os.path.join(runtime.models_dir, "marigold")
+    if not os.path.isdir(mdir):
+        raise FileNotFoundError(
+            f"{mdir} not found; place the Bingxin/Marigold diffusers snapshot "
+            "(unet/vae/text_encoder torch weights) there or set "
+            "runtime.random_weights=True")
+    return marigold_from_snapshot(mdir, device)

@@ -140,9 +140,8 @@ def test_fused_skips_existing_band(tmp_path, narrow_mask, capsys):
     assert "skipping" in capsys.readouterr().out
     assert os.path.exists(str(tmp_path / "depth_anything.mp4"))
     assert os.path.getsize(str(tmp_path / "mask.mp4")) == 0
-    with pytest.raises(ValueError, match="not ported yet: depth_midas "
-                       r"\(see ROADMAP.md queue 1\)"):
-        multiband.run_fused(clip, runtime, depth_band="depth_midas")
+    with pytest.raises(ValueError, match="depth_marigold is not fusable"):
+        multiband.run_fused(clip, runtime, depth_band="depth_marigold")
 
 
 def test_fused_resume_byte_identical(tmp_path, narrow_mask, monkeypatch):
@@ -322,22 +321,24 @@ def test_process_matches_jax_process(tmp_path, small_mask, monkeypatch,
 
 
 def test_process_raises_before_any_work(tmp_path, narrow_mask, monkeypatch):
-    """A band the port lacks, or the card where there is none, raises before
-    the folder exists; an image's default (depth_patchfusion, whose band
-    is stubbed here: tests/test_torch_process_image.py runs it) goes past
-    that check; an image with -d depth_anything runs (mask too)."""
+    """The port has a band module for every band of process's tables; the
+    card where there is none raises before the folder exists; an image's
+    default (depth_patchfusion, whose band is stubbed here:
+    tests/test_torch_process_image.py runs it) goes past that check; an
+    image with -d depth_anything runs (mask too)."""
     import cv2
     import torch
 
     from prisma_tpu_torch.bands import depth_patchfusion_band
+    from prisma_tpu_torch.bands.base import BAND_MODULES
+    from prisma_tpu_torch.cli import process
     from prisma_tpu_torch.cli.process import main
     img = str(tmp_path / "photo.png")
     cv2.imwrite(img, np.random.default_rng(0).integers(
         0, 255, (64, 96, 3)).astype(np.uint8))
     folder = tmp_path / "photo"
-    with pytest.raises(NotImplementedError, match="not ported yet: depth_midas, "
-                       r"depth_marigold \(see ROADMAP.md queue 1\)"):
-        main(["-i", img, "-d", "all", "--random_weights", "--device", "cpu"])
+    assert set(process.DEPTH_BANDS + process.FLOW_BANDS + process.MASK_BANDS
+               + ["camera_colmap"]) <= set(BAND_MODULES)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             main(["-i", img, "-d", "depth_anything", "--random_weights"])
@@ -369,3 +370,72 @@ def test_process_raises_before_any_work(tmp_path, narrow_mask, monkeypatch):
     assert meta["bands"]["depth"] == meta["bands"]["depth_anything"]
     assert meta["bands"]["mask"]["ids"][0] == "person"
     assert cv2.imread(os.path.join(out, "mask.png")).shape == (64, 96, 3)
+
+
+def test_process_depth_midas_matches_jax_process(tmp_path, monkeypatch):
+    """`-d depth_midas` on a clip with no mask and no flow (one band: its
+    own video loop), both packages on the same narrow DPT_Large
+    (tests/test_torch_midas.py's pair) at --depth_size 96: the file
+    inventory and metadata.json equal, the min/max CSVs within 1e-4 of the
+    disparity's scale, the heat mp4 within x264's bounds (mean < 1.5, max
+    40); then, with the mask on, process hands depth_midas to the fused
+    pipeline with the size as the band's target."""
+    from prisma_tpu.bands import depth_midas_band as jband
+    from prisma_tpu.cli.process import main as jmain
+    from prisma_tpu.models import midas as jmidas
+    from prisma_tpu_torch.bands import depth_midas_band as band
+    from prisma_tpu_torch.bands import multiband
+    from prisma_tpu_torch.cli.process import main
+    from tests.test_torch_midas import J_CFG, jax_dpt
+    from prisma_tpu_torch.weights import store
+    from prisma_tpu_torch.weights.from_jax import midas_dpt_state_dict
+
+    params = jax_dpt(0)
+    model = store.midas_dpt_from_state_dict(midas_dpt_state_dict(params))
+    monkeypatch.setattr(band, "load_midas",
+                        lambda runtime, model_version: ("dpt", model))
+    monkeypatch.setattr(jband, "load_midas",
+                        lambda runtime, model_version: ("dpt", params))
+    monkeypatch.setattr(jmidas, "MIDAS_VIT_CONFIG", J_CFG)
+    monkeypatch.setattr(jmidas, "HOOKS", (0, 1, 2, 3))
+    for name in ("jax", "port"):
+        os.makedirs(tmp_path / name)
+    clip_j = str(tmp_path / "jax" / "clip.mp4")
+    _make_video(clip_j, frames=5)
+    clip_p = str(tmp_path / "port" / "clip.mp4")
+    shutil.copy(clip_j, clip_p)
+    args = ["-d", "depth_midas", "--mask", "none", "--flow", "none",
+            "--batch", "2", "--dtype", "float32", "--depth_size", "96",
+            "--segment_frames", "4"]
+    folder = main(["-i", clip_p, "--device", "cpu"] + args)
+    jfolder = jmain(["-i", clip_j, "--mask", "none", "--depth", "none",
+                     "--flow", "none"])
+    shutil.copy(os.path.join(folder, "rgba.mp4"),
+                os.path.join(jfolder, "rgba.mp4"))
+    jmain(["-i", clip_j] + args)
+
+    pb, jb = _folder_bytes(folder), _folder_bytes(jfolder)
+    assert set(pb) == set(jb)
+    assert {"depth_midas.mp4", "depth_midas_min.csv"} <= set(pb)
+    assert json.loads(pb["metadata.json"]) == json.loads(jb["metadata.json"])
+    for name in ("depth_midas_min.csv", "depth_midas_max.csv"):
+        ours, theirs = (np.array(f[name].decode().split(), dtype=np.float64)
+                        for f in (pb, jb))
+        assert ours.shape == theirs.shape == (5,)
+        np.testing.assert_allclose(ours, theirs, rtol=0,
+                                   atol=1e-4 * np.abs(theirs).max())
+    ours, theirs = (_decode_frames(os.path.join(f, "depth_midas.mp4"))
+                    for f in (folder, jfolder))
+    assert len(ours) == len(theirs) == 5
+    for i, (a, b) in enumerate(zip(ours, theirs)):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        assert d.mean() < 1.5 and d.max() <= 40, (i, d.mean())
+
+    calls = []
+    monkeypatch.setattr(multiband, "run_fused", lambda folder, runtime, **kw: (
+        calls.append(kw) or {"mask_mmdet": True, "depth_midas": True,
+                             "flow_gmflow": True}))
+    main(["-i", clip_p, "-d", "depth_midas", "--depth_size", "96",
+          "--device", "cpu", "--output", str(tmp_path / "fused")])
+    assert len(calls) == 1 and calls[0]["depth_band"] == "depth_midas"
+    assert calls[0]["depth_build"] == {"target": 96} and calls[0]["mask_on"]

@@ -120,3 +120,73 @@ def test_process_image_matches_jax_process(tmp_path, one_set_of_weights):
             for f in (folder, jfolder))
     assert a.shape == b.shape == (64, 96, 3)
     assert np.any(a != b, axis=-1).mean() <= 0.01
+
+
+def test_process_depth_marigold_matches_jax_process(tmp_path, monkeypatch):
+    """`-d depth_marigold` on an image (rgba, then Marigold; no mask), both
+    packages on the same tiny weights (tests/test_torch_marigold.py's pair),
+    2 steps x 2 members at 48, the JAX package's member latents injected
+    into the port (jax.random cannot be reproduced without JAX): the file
+    inventory and metadata.json equal but the depth's min and max, which
+    agree within 1e-4 of their scale; the depth finite and within 1e-4 of
+    the JAX package's; the heatmap PNGs: the port's writer on the JAX depth
+    gives the JAX package's bytes, and the two differ by at most 2 levels
+    (a float bin edge moves a pixel's heat and the max-normalised Sobel term
+    of its neighbours by one level each; this random depth is rough, so
+    ~2% of its pixels sit at an edge)."""
+    import functools
+
+    import cv2
+
+    from prisma_tpu.bands import depth_marigold_band as jband
+    from prisma_tpu.cli.process import main as jmain
+    from prisma_tpu_torch.bands import depth_marigold_band as band
+    from prisma_tpu_torch.cli.process import main
+    from prisma_tpu_torch.models import marigold as mg
+    from tests.test_torch_marigold import TINY_UNET, TINY_VAE, _pair, jax_latents
+
+    params, model, ucfg, _ = _pair(TINY_UNET, TINY_VAE, 2)
+    monkeypatch.setattr(band, "load_marigold", lambda runtime, device: model)
+    monkeypatch.setattr(jband, "load_marigold", lambda runtime: (params, ucfg))
+    monkeypatch.setattr(mg, "member_latents", jax_latents)
+    small = dict(denoise_steps=2, ensemble_size=2, processing_res=48)
+    for mod in (band, jband):
+        monkeypatch.setattr(mod, "run", functools.partial(mod.run, **small))
+
+    img = np.random.default_rng(1).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    paths = {}
+    for name in ("jax", "port"):
+        os.makedirs(tmp_path / name)
+        paths[name] = str(tmp_path / name / "photo.png")
+        cv2.imwrite(paths[name], img)
+    args = ["-d", "depth_marigold", "--mask", "none", "--dtype", "float32",
+            "-n"]
+    folder = main(["-i", paths["port"], "--device", "cpu"] + args)
+    jfolder = jmain(["-i", paths["jax"]] + args)
+
+    pb, jb = _folder_bytes(folder), _folder_bytes(jfolder)
+    assert set(pb) == set(jb) == {"rgba.png", "depth_marigold.png",
+                                  "depth_marigold.npy", "metadata.json"}
+    ours, theirs = (json.loads(f["metadata.json"]) for f in (pb, jb))
+    vals = [[m["bands"][b].pop("values") for b in ("depth", "depth_marigold")]
+            for m in (ours, theirs)]
+    assert ours == theirs
+    assert ours["bands"]["depth"]["url"] == "depth_marigold.png"
+    depth = np.load(os.path.join(folder, "depth_marigold.npy"))
+    jdepth = np.load(os.path.join(jfolder, "depth_marigold.npy"))
+    assert depth.shape == (40, 56) and np.isfinite(depth).all()
+    np.testing.assert_allclose(depth, jdepth, rtol=0,
+                               atol=1e-4 * np.abs(jdepth).max())
+    theirs_v = vals[1][0]
+    scale = max(abs(theirs_v["min"]["value"]), abs(theirs_v["max"]["value"]))
+    for key in ("min", "max"):
+        assert (abs(vals[0][0][key]["value"] - theirs_v[key]["value"])
+                <= 1e-4 * scale)
+    from prisma_tpu_torch.io.writers import write_depth
+    write_depth(str(tmp_path / "theirs.png"), jdepth, normalize=True,
+                heatmap=True, encode_range=True, flip=False)
+    a, b = (cv2.imread(os.path.join(f, "depth_marigold.png")).astype(int)
+            for f in (folder, jfolder))
+    assert np.array_equal(cv2.imread(str(tmp_path / "theirs.png")), b)
+    assert a.shape == b.shape == (40, 56, 3)
+    assert np.abs(a - b).max() <= 2

@@ -1,28 +1,37 @@
 """The port's weights: reference-key state_dicts, the JAX converter round
 trip, and checkpoint files in each on-disk format, for relative
-Depth-Anything, metric Depth-Anything (ZoeDepth head), SOLOv2, ZoeD_N and
-PatchFusion."""
+Depth-Anything, metric Depth-Anything (ZoeDepth head), SOLOv2, ZoeD_N,
+PatchFusion, MiDaS (DPT_Large, v2.1) and Marigold (the diffusers
+snapshot)."""
 
 import numpy as np
 import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from prisma_tpu.weights.torch_convert import (convert_checked,
                                               convert_depth_anything,
                                               convert_metric_depth_anything,
+                                              convert_midas2,
+                                              convert_midas_dpt,
                                               convert_patchfusion,
                                               convert_solov2, convert_zoed)
 from prisma_tpu_torch.models import beit
 from prisma_tpu_torch.models import depth_anything as da
+from prisma_tpu_torch.models import marigold as mg
+from prisma_tpu_torch.models import midas, sd2
 from prisma_tpu_torch.models import patchfusion as pf
 from prisma_tpu_torch.models import solov2, vit, zoed
 from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.weights import store
 from prisma_tpu_torch.weights.from_jax import (depth_anything_state_dict,
+                                               marigold_state_dict,
                                                metric_depth_anything_state_dict,
+                                               midas2_state_dict,
+                                               midas_dpt_state_dict,
                                                patchfusion_state_dict,
                                                solov2_state_dict,
                                                zoed_state_dict)
@@ -414,3 +423,257 @@ def test_beit_family_random_init_is_seeded(monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError, match="patchfusion_u4k.pt"):
         store.load_patchfusion(RuntimeConfig(models_dir=str(tmp_path),
                                              device="cpu"))
+
+
+# MiDaS: DPT_Large (a timm ViT 64 wide, one head of 64, 4 blocks, the 24x24
+# position grid; 16 features) and v2.1 (ResNeXt-101 32x8d at stem width 16;
+# 32 features), in the hub checkpoints' layouts.
+MIDAS_VIT = vit.ViTConfig(embed_dim=64, depth=4, num_heads=1, patch_size=16,
+                          base_img_size=384, layerscale=False)
+
+
+@pytest.fixture(scope="module")
+def midas_models():
+    gen = torch.Generator().manual_seed(5)
+    dpt = midas.init_params(midas.build_dpt(MIDAS_VIT, 16, (8, 16, 32, 32)), gen)
+    v2 = midas.init_params_v2(midas.build_v2(32, width=16), gen)
+    with torch.no_grad():
+        for m in v2.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=gen)
+                m.running_var.uniform_(0.6, 1.4, generator=gen)
+    return {"dpt": dpt, "v2": v2}
+
+
+MIDAS_KEYS = {
+    "dpt": ("pretrained.model.cls_token", "pretrained.model.pos_embed",
+            "pretrained.model.patch_embed.proj.weight",
+            "pretrained.model.blocks.3.attn.qkv.bias",
+            "pretrained.model.blocks.0.mlp.fc2.weight",
+            "pretrained.model.norm.weight",
+            "pretrained.act_postprocess1.0.project.0.weight",
+            "pretrained.act_postprocess1.4.weight",
+            "pretrained.act_postprocess4.4.bias", "scratch.layer3_rn.weight",
+            "scratch.refinenet2.out_conv.weight", "scratch.output_conv.4.bias"),
+    "v2": ("pretrained.layer1.0.weight", "pretrained.layer1.1.running_var",
+           "pretrained.layer1.4.2.conv2.weight",
+           "pretrained.layer3.22.bn3.bias",
+           "pretrained.layer4.0.downsample.1.weight",
+           "scratch.layer4_rn.weight",
+           "scratch.refinenet1.resConfUnit2.conv1.bias",
+           "scratch.output_conv.0.weight")}
+
+
+@pytest.mark.parametrize("arch", ["dpt", "v2"])
+def test_midas_keys_are_the_reference_checkpoints(midas_models, arch):
+    keys = set(midas_models[arch].state_dict())
+    for k in MIDAS_KEYS[arch]:
+        assert k in keys, k
+    assert not any(".ls1." in k or "mask_token" in k for k in keys)
+    if arch == "v2":  # no out conv in the v2.1 fusion blocks; bias-free rn
+        assert not any("out_conv" in k for k in keys)
+        assert "scratch.layer1_rn.bias" not in keys
+        assert midas_models[arch].state_dict()[
+            "pretrained.layer2.0.conv2.weight"].shape == (128, 4, 3, 3)
+
+
+@pytest.mark.parametrize("arch", ["dpt", "v2"])
+def test_midas_convert_then_from_jax_round_trip(midas_models, arch):
+    """Exact, except v2.1's batch norms, which convert_midas2 folds and
+    from_jax unfolds to mean 0, variance 1 - eps: their folded scale and
+    shift come back within an ulp; every key is read by the JAX converter."""
+    sd = midas_models[arch].state_dict()
+    np_sd = {k: v.numpy() for k, v in sd.items()}
+    if arch == "dpt":
+        params = convert_checked(convert_midas_dpt, np_sd)
+        back = midas_dpt_state_dict(jax.tree.map(np.asarray, params))
+        assert set(back) == set(sd)
+        for k, v in sd.items():
+            assert torch.equal(back[k], v), k
+        return
+    params = convert_checked(convert_midas2, np_sd)
+    back = midas2_state_dict(jax.tree.map(np.asarray, params))
+    assert set(back) == set(sd)
+
+    def folded(d, bn):
+        scale = d[bn + "weight"] / torch.sqrt(d[bn + "running_var"] + 1e-5)
+        return scale, d[bn + "bias"] - d[bn + "running_mean"] * scale
+
+    for k, v in sd.items():
+        bn = k[:k.rindex(".") + 1]
+        if bn + "running_var" in sd:
+            if k.endswith("weight"):
+                for a, b in zip(folded(back, bn), folded(sd, bn)):
+                    np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                               rtol=2.4e-7, atol=1e-9,
+                                               err_msg=k)
+        else:
+            assert torch.equal(back[k], v), k
+
+
+@pytest.mark.parametrize("version", ["midas3", "midas2-small"])
+def test_midas_checkpoint_files_load_in_both_packages(tmp_path, monkeypatch,
+                                                      midas_models, version):
+    """`dpt_large_384.pt` with timm's classifier beside the backbone (which
+    neither package reads) and `midas_v21_384.pt` without its batch norms'
+    step counters: the port loads each strictly, the JAX package's own
+    loader converts the same file, and the two disparities agree within
+    1e-5 of their scale (f32 both sides)."""
+    from prisma_tpu.models import midas as jmidas
+    from prisma_tpu.models import vit as jvit
+    from prisma_tpu.runtime.config import RuntimeConfig as JaxRuntimeConfig
+    from prisma_tpu.weights import store as jstore
+
+    arch = "v2" if version.startswith("midas2") else "dpt"
+    sd = midas_models[arch].state_dict()
+    if arch == "dpt":
+        D = MIDAS_VIT.embed_dim
+        payload = {**sd, "pretrained.model.head.weight": torch.zeros(1000, D),
+                   "pretrained.model.head.bias": torch.zeros(1000)}
+        torch.save(payload, tmp_path / "dpt_large_384.pt")
+        monkeypatch.setattr(jmidas, "MIDAS_VIT_CONFIG", jvit.ViTConfig(
+            embed_dim=D, depth=4, num_heads=1, patch_size=16,
+            base_img_size=384, layerscale=False))
+        monkeypatch.setattr(jmidas, "HOOKS", (0, 1, 2, 3))
+    else:
+        torch.save({k: v for k, v in sd.items()
+                    if not k.endswith("num_batches_tracked")},
+                   tmp_path / "midas_v21_384.pt")
+    got_arch, loaded = store.load_midas(RuntimeConfig(
+        models_dir=str(tmp_path), random_weights=False, device="cpu"), version)
+    assert got_arch == arch
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    j_arch, params = jstore.load_midas(JaxRuntimeConfig(
+        models_dir=str(tmp_path), weight_cache=False), version)
+    assert j_arch == arch
+    frames = np.random.default_rng(7).integers(0, 256, (1, 40, 56, 3),
+                                               dtype=np.uint8)
+    infer, jinfer = ((midas.infer_v2, jmidas.infer_v2) if arch == "v2"
+                     else (midas.infer, jmidas.infer))
+    with torch.inference_mode():
+        ours = infer(loaded, torch.from_numpy(frames), target=64).numpy()
+    theirs = np.asarray(jinfer(params, frames, target=64))
+    np.testing.assert_allclose(ours, theirs, rtol=0,
+                               atol=1e-5 * np.abs(theirs).max())
+    with pytest.raises(FileNotFoundError, match="midas_v21_384.pt"):
+        store.load_midas(RuntimeConfig(models_dir=str(tmp_path / "none"),
+                                       device="cpu"), "midas2")
+    with pytest.raises(ValueError, match="unknown midas"):
+        store.load_midas(RuntimeConfig(device="cpu"), "midas4")
+
+
+# Marigold: a narrow diffusers snapshot (UNet 64, 64, 128, 128 with heads
+# of 64; VAE 32, 32, 64, 64; 32 groups, the widths the JAX package's loader
+# runs at; a 64-wide, 2-layer text tower), the VAE's mid-block attention in
+# the names of diffusers before 0.14, the text encoder with its position ids.
+SNAP_UNET = dict(block_channels=(64, 64, 128, 128), cross_attention_dim=64,
+                 head_dim=64, norm_groups=32)
+SNAP_VAE = dict(block_channels=(32, 32, 64, 64), norm_groups=32)
+OLD_VAE_NAMES = {"to_q": "query", "to_k": "key", "to_v": "value",
+                 "to_out.0": "proj_attn"}
+
+
+def _write_snapshot(root, model, text):
+    import json
+    import os
+    for sub in ("unet", "vae", "text_encoder"):
+        os.makedirs(root / sub)
+    sd = model.state_dict()
+    unet = {k[5:]: v for k, v in sd.items() if k.startswith("unet.")}
+    vae = {}
+    for k, v in sd.items():
+        if k.startswith("vae."):
+            k = k[4:]
+            for new, old in OLD_VAE_NAMES.items():
+                k = k.replace(f"attentions.0.{new}.", f"attentions.0.{old}.")
+            vae[k] = v
+    torch.save(unet, root / "unet" / "diffusion_pytorch_model.bin")
+    torch.save(vae, root / "vae" / "diffusion_pytorch_model.bin")
+    torch.save({**text.state_dict(), "text_model.embeddings.position_ids":
+                torch.arange(77)[None]},
+               root / "text_encoder" / "pytorch_model.bin")
+    for sub, conf in (("unet", {"attention_head_dim": [1, 1, 2, 2],
+                                "norm_num_groups": 32}),
+                      ("vae", {"norm_num_groups": 32}),
+                      ("text_encoder", {"num_attention_heads": 2,
+                                        "bos_token_id": 49406,
+                                        "eos_token_id": 49407})):
+        with open(root / sub / "config.json", "w") as f:
+            json.dump(conf, f)
+
+
+def test_marigold_snapshot_loads_in_both_packages(tmp_path, monkeypatch):
+    """The port loads `marigold/{unet,vae,text_encoder}` strictly (the old
+    VAE names mapped, the position ids dropped) and computes the empty
+    prompt's embedding with its own text tower; the JAX package's
+    `convert_marigold` reads the same files: its trees carried back equal
+    the port's state_dict, the embeddings agree within 1e-6, and one UNet
+    call agrees within 1e-5 of its scale."""
+    from prisma_tpu.models import marigold as jmar
+    from prisma_tpu.models import sd2 as jsd2
+    from prisma_tpu.runtime.config import RuntimeConfig as JaxRuntimeConfig
+    from prisma_tpu.weights import store as jstore
+
+    gen = torch.Generator().manual_seed(6)
+    model = mg.init_params(mg.build(sd2.UNetConfig(**SNAP_UNET),
+                                    sd2.VAEConfig(**SNAP_VAE)), gen)
+    text_cfg = mg.CLIPTextConfig(width=64, heads=2, layers=2)
+    text = mg.init_text(mg.build_text(text_cfg), gen)
+    _write_snapshot(tmp_path / "marigold", model, text)
+    loaded = store.load_marigold(RuntimeConfig(models_dir=str(tmp_path),
+                                               device="cpu"))
+    sd = model.state_dict()
+    assert set(loaded.state_dict()) == set(sd)
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    assert loaded.unet.cfg == sd2.UNetConfig(**SNAP_UNET)
+    with torch.inference_mode():
+        embed = mg.empty_text_embed(text)
+    assert torch.equal(loaded.empty_text_embed, embed)
+
+    real = jmar.empty_text_embed
+    monkeypatch.setattr(jmar, "empty_text_embed", lambda p: real(
+        p, jmar.CLIPTextConfig(width=64, heads=2, layers=2)))
+    params, _ucfg = jstore.load_marigold(JaxRuntimeConfig(
+        models_dir=str(tmp_path), weight_cache=False))
+    back = marigold_state_dict(jax.tree.map(np.asarray, params))
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+    np.testing.assert_allclose(np.asarray(params["empty_text_embed"]),
+                               embed.numpy(), rtol=0, atol=1e-6)
+    x = np.random.default_rng(8).normal(size=(1, 12, 16, 8)).astype(np.float32)
+    ctx = np.asarray(params["empty_text_embed"])
+    theirs = np.asarray(jax.jit(jsd2.unet_forward, static_argnums=(4,))(
+        params["unet"], jnp.asarray(x), jnp.asarray([301]), jnp.asarray(ctx),
+        jsd2.UNetConfig(**SNAP_UNET))).transpose(0, 3, 1, 2)
+    with torch.inference_mode():
+        ours = sd2.unet_forward(loaded.unet, torch.from_numpy(
+            x.transpose(0, 3, 1, 2).copy()), torch.tensor([301]),
+            loaded.empty_text_embed).numpy()
+    np.testing.assert_allclose(ours, theirs, rtol=0,
+                               atol=1e-5 * np.abs(theirs).max())
+
+
+def test_midas_and_marigold_random_init_is_seeded(monkeypatch):
+    """Random MiDaS at full width (DPT_Large: ViT-L/16 at 384; v2.1:
+    ResNeXt-101 32x8d), and the tiny Marigold with its text tower run."""
+    runtime = RuntimeConfig(random_weights=True, device="cpu")
+    arch, a = store.load_midas(runtime, "midas3-small")
+    assert arch == "dpt" and a.pretrained.model.cfg == midas.VIT_CONFIG
+    assert a.pretrained.model.pos_embed.shape == (1, 577, 1024)
+    arch, b = store.load_midas(runtime, "midas2")
+    assert arch == "v2"
+    assert b.pretrained.layer4[0].conv2.weight.shape == (2048, 64, 3, 3)
+    monkeypatch.setenv("PRISMA_MARIGOLD_TINY", "1")
+    m1 = store.load_marigold(runtime)
+    m2 = store.load_marigold(runtime)
+    assert torch.equal(m1.empty_text_embed, m2.empty_text_embed)
+    assert m1.empty_text_embed.shape == (1, 2, 64)
+    assert bool(m1.empty_text_embed.abs().sum() > 0)
+    assert all(torch.equal(v, m2.state_dict()[k])
+               for k, v in m1.state_dict().items())
+    with pytest.raises(FileNotFoundError, match="Bingxin/Marigold"):
+        store.load_marigold(RuntimeConfig(models_dir="/nonexistent",
+                                          device="cpu"))
