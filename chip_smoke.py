@@ -15,7 +15,8 @@ three steps of one batch of the fused pipeline; then the BEiT-L depth
 family: PatchFusion on a 1080p frame at p49, ZoeD_N's video step, and an
 image's default run (mask, PatchFusion at r128); then MiDaS (DPT_Large
 and v2.1 video steps at batch 8) and Marigold (one 1080p frame, 10 steps x
-10 members at 768). It holds every kernel
+10 members at 768); then GMFlow's refinement (--num_scales 2) and RAFT's
+fused lookup (--corr_impl fused) on the flow frames. It holds every kernel
 against its plain PyTorch version. The folder writers (decode, x264) are
 not driven: the card's machine is not known to have libav or colmap. Each phase prints a line; a
 failed phase ends the run with a non-zero exit. Without a CUDA device it
@@ -128,6 +129,26 @@ exits non-zero at once.
      weights, widened) on a 256x256 frame at 256, 2 members x 2 steps, in
      f32 on the card against the CPU (the same member latents), within
      1e-4 of the depth's scale, 10 f32 K1
+ 28. k1-refine, k2-refine: K1 and K2 at the refinement's 1/4-scale windows
+     [1792, 1170, 128] bf16 (26x45 tokens, 8x8 splits: a ragged key tile in
+     every window, an odd window width) against their plain versions,
+     computed in window chunks; the bound shown to fail with the ragged key
+     tile unmasked (K1) and with a band moved by one token row (K2);
+     kernel, plain, SDPA and bound times; K3 at [7, 18720, 128] and [14,
+     18720, 128] and K4 at [14, 64, 416, 720] (the /32-padded shapes) held
+     and timed
+ 29. gmflow-refine-f32: the full-width refinement model (weights at half
+     scale, as the CPU tests take them) in f32 with TF32 off on a 128x192
+     pair, on the card against the CPU, 12 K1, 12 K2, 3 K3, 15 K4
+ 30. flow-refine: the refinement step at full width on the 8 frames (7
+     pairs, 832x1440 padded): exactly 12 K1, 12 K2, 3 K3 and 15 K4 a step,
+     outputs checked, pairs/s and peak memory; every kernel call of one
+     pair's real activations held to its plain version; the flow within 2x
+     the null distance of a plain path that rounds P as K1/K2 do
+ 31. raft-fused: the fused lookup in f32 on the card against the volume
+     path (2 pairs at 128x192, 4 iterations: 15 K4, no K5 against 15 K4 +
+     4 K5); one full-width step at 810x1440, 20 iterations, with exactly 15
+     K4 and 0 K5: pairs/s and peak memory beside the volume path's
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -173,6 +194,17 @@ MARIGOLD_TIMED = 2  # timed Marigold frames
 MIDAS_K1_PER_STEP = 24  # DPT_Large: one K1 a ViT-L block
 MARIGOLD_K1_PER_FRAME = 10 * (5 + 5)  # 10 UNet calls, 5 + 5 long self-attentions
 MARIGOLD_F32_HW = 256  # the f32 check's frame and processing size: 32x32 latent
+# GMFlow's refinement at 0.75x 1080p padded to /32 (832x1440): 1/8 features
+# 104x180 in 2x2 splits (52x90 = 4680 tokens), 1/4 features 208x360 in 8x8
+# splits (26x45 = 1170 tokens); 7 pairs doubled (bidir) and doubled again
+# (self + cross concat) x 64 windows
+REFINE_FEAT_HW = (208, 360)
+REFINE_WIN_SHAPE = (1792, 1170, 128)
+REFINE_MATCH_SHAPE = (7, 18720, 128)  # 1/8 global matching, 104x180 tokens
+REFINE_NORM_SHAPE = (14, 64, 416, 720)  # conv1's instance norm at 832x1440
+REFINE_STEP = {"K1": 12, "K2": 12, "K3": 3, "K4": 15}
+REFINE_WEIGHT_SCALE = 0.5  # the f32 check's weights (tests/test_torch_gmflow.py)
+ATTN_CHUNK = 256  # windows a chunk of the plain attention: 4 x 64 at ns = 8
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 # K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
 K3_TILE_Q, K3_TILE_K = 256, 128
@@ -255,6 +287,14 @@ def bound(flops, nbytes):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attn_tols(ref):
+    """K1/K2's (max, mean) bounds against their plain version: bf16_bounds
+    for bf16, ATOL_F32 for f32."""
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+    return fa.bf16_bounds(ref) if ref.dtype == torch.bfloat16 \
+        else (ATOL_F32, ATOL_F32)
 
 
 def within(out, ref, tols):
@@ -393,10 +433,6 @@ def main():
 
     def read_counts():
         return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-
-    def attn_tols(ref):
-        return fa.bf16_bounds(ref) if ref.dtype == torch.bfloat16 \
-            else (ATOL_F32, ATOL_F32)
 
     # 1. environment
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
@@ -876,67 +912,12 @@ def main():
         f"({elapsed / TIMED_STEPS * 1e3:.1f} ms per step of {P} pairs, host "
         f"clock, H2D and D2H included) on {card}")
 
-    # One pair's real activations: every kernel call held to its plain
-    # version with its bounds; then the pair's flow with the plain versions
-    # in place of the kernels, and with a plain path that rounds P to bf16
-    # as K1/K2 do (the null distance).
+    # one pair's real activations, each kernel call held; the null check
     x = torch.from_numpy(frames[:2]).cuda()
     with torch.inference_mode():
         ds = resize2d(x.float(), FLOW_HW, method="cubic").to(torch.bfloat16)
-    calls = {"K1": [], "K2": [], "K3": [], "K4": []}
-
-    def ratios(key, out, ref, tols):
-        max_err, mean_err, ok = within(out, ref, tols)
-        calls[key].append((max_err / tols[0], mean_err / tols[1], ok))
-        return out
-
-    def fa_checked(q, k, v, region_bands=None, win_w=0):
-        out = fa.flash_attention(q, k, v, region_bands=region_bands, win_w=win_w)
-        ref = plain_p_bf16(q, k, v, region_bands=region_bands, win_w=win_w)
-        return ratios("K1" if region_bands is None else "K2", out, ref,
-                      attn_tols(ref))
-
-    def streamed_checked(q, k, v, scale):
-        return ratios("K3", fa.flash_attention_streamed(q, k, v, scale),
-                      fa.flash_attention_streamed_ref(q, k, v, scale),
-                      fa.streamed_bounds(v))
-
-    def norm_checked(x, eps=inorm.EPS, relu=False):
-        ref = inorm.instance_norm_relu_ref(x, eps, relu)
-        return ratios("K4", inorm.instance_norm_relu(x, eps, relu), ref,
-                      inorm.bounds(ref))
-
-    paths = {
-        "kernels": (fa_checked, streamed_checked, norm_checked),
-        "plain": (fa.flash_attention_ref, fa.flash_attention_streamed_ref,
-                  inorm.instance_norm_relu_ref),
-        "plain_p_bf16": (plain_p_bf16, fa.flash_attention_streamed_ref,
-                         inorm.instance_norm_relu_ref)}
-    flows = {}
-    with torch.inference_mode():
-        for name, (attn, streamed, norm) in paths.items():
-            gm.flash_attention, gm.flash_attention_streamed, \
-                gm.instance_norm_relu = attn, streamed, norm
-            try:
-                flows[name] = torch.cat(infer(model, ds[:1], ds[1:])).float()
-            finally:
-                gm.flash_attention, gm.flash_attention_streamed, \
-                    gm.instance_norm_relu = (fa.flash_attention,
-                                             fa.flash_attention_streamed,
-                                             inorm.instance_norm_relu)
-    n_calls = {key: len(v) for key, v in calls.items()}
-    ok = n_calls == per_step and all(r[2] for v in calls.values() for r in v)
-    say("flow", "pair 0, every kernel call against its plain version on the "
-        "real activations, worst |err| / tol (max, mean): " + "; ".join(
-            f"{key} x{len(v)} {max(r[0] for r in v):.3f}, "
-            f"{max(r[1] for r in v):.3f}" for key, v in calls.items())
-        + f" {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail(f"a kernel disagrees with its plain version on the flow path's "
-             f"activations ({n_calls} calls)")
-    null_check("flow", "flow", flows["kernels"], flows["plain"],
-               flows["plain_p_bf16"], 1.0, unit="px")
-    del model, step, outs, flows, ds
+    gmflow_pair("flow", infer, model, ds, per_step)
+    del model, step, outs, ds
     torch.cuda.empty_cache()
 
     # 11. K5: RAFT's window lookup, on the pyramid of the RAFT main shape
@@ -1052,11 +1033,13 @@ def main():
         f"{-(-FLOW_HW[0] // 8) * 8}x{-(-FLOW_HW[1] // 8) * 8}), masks and flows "
         f"returned: set-up and warm-up {time.perf_counter() - t0:.2f} s; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    raft_volume = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     zero_counts()
     t0 = time.perf_counter()
     outs = [step(frames) for _ in range(TIMED_STEPS)]
     elapsed = time.perf_counter() - t0
     raft_counts = read_counts()
+    raft_volume["pairs_s"] = P * TIMED_STEPS / elapsed
     check_flow_outputs(outs)
     raft_step = {"K4": 15, "K5": RAFT_ITERS}
     expect = per_path(**{key: n * TIMED_STEPS for key, n in raft_step.items()})
@@ -1079,6 +1062,7 @@ def main():
     with torch.inference_mode():
         ds = resize2d(x.float(), FLOW_HW, method="cubic").to(torch.bfloat16)
     calls = {"K4": [], "K5": []}
+    ratios = held(calls)
     k5_equal_calls = []
 
     def lookup_checked(pyramid, coords, r=4):
@@ -1088,7 +1072,7 @@ def main():
         return ratios("K5", out, ref, rl.bounds(ref))
 
     paths = {
-        "kernels": (lookup_checked, norm_checked),
+        "kernels": (lookup_checked, norm_held(ratios)),
         "plain": (rl.window_lookup_ref, inorm.instance_norm_relu_ref),
         "plain_bf16_blend": (functools.partial(rl.window_lookup_ref,
                                                blend_dtype=torch.bfloat16),
@@ -1427,11 +1411,16 @@ def main():
                              read_counts, per_path)
     depth_counts = depth_band_paths(runtime, frames, card, rng, zero_counts,
                                     read_counts, per_path, k1)
+    refine_counts = flow_refine_paths(runtime, frames, card, rng, zero_counts,
+                                      read_counts, per_path,
+                                      dict(k1=k1, k2=k2, k3=k3, k4=k4),
+                                      raft_volume)
 
     runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
             "flow_raft": raft_counts, "probe": probe_counts,
             "depth_anything_metric": metric_counts, "mask": mask_counts,
-            "fused_3band": fused_counts, **beit_counts, **depth_counts}
+            "fused_3band": fused_counts, **beit_counts, **depth_counts,
+            **refine_counts}
     launches = {key: sum(c[key] for c in runs.values()) for key in counters}
     by_path = {key: {path: c[key] for path, c in runs.items()}
                for key in counters}
@@ -1873,6 +1862,293 @@ def depth_band_paths(runtime, frames, card, rng, zero_counts, read_counts,
     return counts
 
 
+def attn_chunked(fn, q, k, v, **kw):
+    """fn over the batch rows in chunks of ATTN_CHUNK windows (a multiple of
+    the window count, so region bands stay aligned): a plain attention whose
+    scores would not fit at once ([1792, 1170, 1170] f32 is 9.8 GB)."""
+    return torch.cat([fn(q[i:i + ATTN_CHUNK], k[i:i + ATTN_CHUNK],
+                         v[i:i + ATTN_CHUNK], **kw)
+                      for i in range(0, q.shape[0], ATTN_CHUNK)])
+
+
+def flow_refine_paths(runtime, frames, card, rng, zero_counts, read_counts,
+                      per_path, rows, raft_volume):
+    """Phases 28-31: GMFlow's refinement (--num_scales 2) and RAFT's fused
+    lookup (--corr_impl fused). rows: the kernels line's K1-K4 entries, which
+    take the refinement's shapes; raft_volume: the volume path's pairs/s and
+    peak memory (phase 13). -> {path: launch counts}."""
+    import torch.nn.functional as F
+
+    from prisma_tpu_torch.bands import flow_base, flow_gmflow_band, flow_raft_band
+    from prisma_tpu_torch.models import gmflow as gm
+    from prisma_tpu_torch.models import raft
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+    from prisma_tpu_torch.ops.cuda import instance_norm as inorm
+    from prisma_tpu_torch.ops.resize import resize2d
+    from prisma_tpu_torch.runtime.config import RuntimeConfig
+    from prisma_tpu_torch.weights import store
+
+    plain_p_bf16 = functools.partial(fa.flash_attention_ref, round_p=True)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    counts = {}
+    P = BATCH - 1
+
+    def normal(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    # 28. K1 and K2 at the 1/4-scale windows, K3 and K4 at the /32 shapes
+    B, N, d = REFINE_WIN_SHAPE
+    nwin = 64
+    bands = torch.from_numpy(gm.shift_window_region_bands(*REFINE_FEAT_HW, 8)).cuda()
+    win_w = REFINE_FEAT_HW[1] // 8
+    say("k1-refine", f"[{B}, {N}, {d}] bf16: 26x45-token windows of the "
+        f"{REFINE_FEAT_HW[0]}x{REFINE_FEAT_HW[1]} features in 8x8 splits "
+        f"({N} = {N // K1_TILE_K} x {K1_TILE_K} + {N % K1_TILE_K}: a ragged key "
+        f"tile in every window); shifted bands (bh, bw) "
+        f"{sorted({tuple(b) for b in bands.tolist()})}, win_w {win_w} (shift "
+        f"{win_w // 2}); bounds as K1's; the plain versions in chunks of "
+        f"{ATTN_CHUNK} windows")
+    q, k, v = (normal(REFINE_WIN_SHAPE, torch.bfloat16) for _ in range(3))
+    q4, k4, v4 = (t.view(B // nwin, nwin, N, d) for t in (q, k, v))
+    bound_ms, bound_by = bound(4 * B * N * N * d, 4 * nbytes(q))  # q, k, v, out
+    for key, phase, kw in (("k1", "k1-refine", {}),
+                           ("k2", "k2-refine", dict(region_bands=bands,
+                                                    win_w=win_w))):
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = attn_chunked(plain_p_bf16, q, k, v, **kw)
+        err = report(phase, f"{list(REFINE_WIN_SHAPE)} bf16"
+                     + (", bands" if kw else ""), out, ref, fa.bf16_bounds(ref))
+        if kw:
+            moved = bands.clone()
+            moved[:, 0] += 1
+            wrong = attn_chunked(plain_p_bf16, q, k, v, region_bands=moved,
+                                 win_w=win_w)
+            must_fail(phase, f"bh moved down one token row ({win_w} tokens)",
+                      out, wrong, fa.bf16_bounds(ref))
+            codes = fa.region_codes(nwin, N, bands, win_w)
+            mask = torch.where(codes[:, :, None] != codes[:, None, :],
+                               -fa.REGION_PENALTY, 0.0).to(torch.bfloat16)[None]
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4,  # noqa: E731
+                                                         attn_mask=mask)
+        else:
+            pad = -N % K1_TILE_K
+            kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
+            wrong = attn_chunked(plain_p_bf16, F.pad(q, (0, 0, 0, pad)), kp,
+                                 vp)[:, :N]
+            must_fail(phase, f"its last key tile unmasked ({pad} zero keys)",
+                      out, wrong, fa.bf16_bounds(ref))
+            del kp, vp
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+        del ref, wrong
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
+        plain_ms = cuda_ms(lambda: attn_chunked(fa.flash_attention_ref, q, k, v,
+                                                **kw), 2)
+        lib_ms = library_ms(lib, 5)
+        rows[key]["at_refine_windows"] = dict(
+            shape=list(REFINE_WIN_SHAPE), max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms)
+        say(phase, f"time at {list(REFINE_WIN_SHAPE)} bf16: kernel {ms:.4f} ms "
+            f"({4 * B * N * N * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound_ms / ms:.1%} of the bound), plain (chunked) {plain_ms:.3f} "
+            f"ms, scaled_dot_product_attention on [{B // nwin}, {nwin}, {N}, {d}]"
+            + (" with a float [1, 64, N, N] mask" if kw else "")
+            + f" {lib_ms} ms, bound {bound_ms:.4f} ms ({bound_by}); on {card}")
+        if kw:
+            del mask
+    del q, k, v, q4, k4, v4, out
+    torch.cuda.empty_cache()
+    Bm, Nm, dm = REFINE_MATCH_SHAPE
+    grid = gm._coords_grid_flat(REFINE_FEAT_HW[0] // 2, REFINE_FEAT_HW[1] // 2,
+                                "cuda")
+    for label, shape, v in (
+            ("matching", REFINE_MATCH_SHAPE, grid[None].expand(Bm, Nm, 2).contiguous()),
+            ("propagation", (2 * Bm, Nm, dm), None)):
+        q, k = (normal(shape, torch.bfloat16) for _ in range(2))
+        if v is None:
+            v = normal((2 * Bm, Nm, 2), torch.float32, scale=40.0)
+        out = fa.flash_attention_streamed(q, k, v, dm ** -0.5)
+        err = report("k3-refine", f"{label} {list(shape)} bf16, dv 2", out,
+                     fa.flash_attention_streamed_ref(q, k, v, dm ** -0.5),
+                     fa.streamed_bounds(v))
+        ms = cuda_ms(lambda: fa.flash_attention_streamed(q, k, v, dm ** -0.5), 5)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_streamed_ref(
+            q, k, v, dm ** -0.5), 2)
+        vpad = F.pad(v.to(torch.bfloat16), (0, dm - 2))[:, None]
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], vpad), 3)
+        b_ms, b_by = bound(2 * shape[0] * Nm * Nm * (dm + 2), nbytes(q, k, v, out))
+        rows["k3"][f"at_refine_{label}"] = dict(
+            shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        say("k3-refine", f"time at {label} {list(shape)}: kernel {ms:.3f} ms "
+            f"({b_ms / ms:.1%} of the bound), plain {plain_ms:.3f} ms, "
+            f"scaled_dot_product_attention with v padded (bf16) {lib_ms} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}); on {card}")
+        del q, k, v, out, vpad
+    x = normal(REFINE_NORM_SHAPE, torch.bfloat16, scale=2.0) + 1.0
+    out = inorm.instance_norm_relu(x, relu=True)
+    ref = inorm.instance_norm_relu_ref(x, relu=True)
+    err = report("k4-refine", f"{list(REFINE_NORM_SHAPE)} bf16 + relu", out,
+                 ref, inorm.bounds(ref))
+    ms = cuda_ms(lambda: inorm.instance_norm_relu(x, relu=True), 20)
+    plain_ms = cuda_ms(lambda: inorm.instance_norm_relu_ref(x, relu=True), 5)
+    lib_ms = library_ms(lambda: F.instance_norm(x, eps=inorm.EPS), 20)
+    b_ms, b_by = bound(0, nbytes(x, out))
+    rows["k4"]["at_refine_conv1"] = dict(
+        shape=list(REFINE_NORM_SHAPE), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    say("k4-refine", f"time at {list(REFINE_NORM_SHAPE)} bf16: kernel {ms:.3f} "
+        f"ms ({nbytes(x, out) / (ms * 1e-3) / 1e12:.2f} TB/s), plain "
+        f"{plain_ms:.3f} ms, F.instance_norm {lib_ms} ms, bound {b_ms:.3f} ms "
+        f"({b_by}); on {card}")
+    del x, out, ref
+    torch.cuda.empty_cache()
+
+    # 29. the refinement in f32 on the card (TF32 off) against the CPU
+    cpu_rt = RuntimeConfig(random_weights=True, device="cpu")
+    cpu_gm = store.load_gmflow(cpu_rt, gm.refine_config())
+    with torch.no_grad():
+        for p in cpu_gm.parameters():
+            p.mul_(REFINE_WEIGHT_SCALE)
+    gpu_gm = copy.deepcopy(cpu_gm).cuda()
+    imgs = torch.from_numpy(rng.uniform(0, 255, size=(3, 128, 192, 3))
+                            .astype(np.float32))
+    with torch.inference_mode():
+        f_cpu = torch.cat(gm.infer_pairs(cpu_gm, imgs[:-1], imgs[1:]))
+        zero_counts()
+        g = imgs.cuda()
+        f_gpu = torch.cat(gm.infer_pairs(gpu_gm, g[:-1], g[1:])).cpu()
+    got = read_counts()
+    err = float((f_gpu - f_cpu).abs().max())
+    tol = 1e-4 * float(f_cpu.abs().max())
+    ok = (got == per_path(**REFINE_STEP) and bool(torch.isfinite(f_gpu).all())
+          and err <= tol)
+    say("gmflow-refine-f32", f"GMFlow refinement (128 channels, 6 layers, 2 "
+        f"scales; weights x{REFINE_WEIGHT_SCALE}) 2 pairs at 128x192, f32: max "
+        f"|flow_gpu - flow_cpu| {err:.3e} px, tol {tol:.3e} px (1e-4 of the "
+        f"flow scale, max |flow| {float(f_cpu.abs().max()):.2f}); launches "
+        f"{got} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the f32 GMFlow refinement on the card disagrees with the CPU")
+    del cpu_gm, gpu_gm
+
+    # 30. the refinement step at full width on the 8 frames
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lazy_model, infer = flow_gmflow_band.build_pairs(runtime, cfg=gm.refine_config())
+    model = lazy_model().to(device=runtime.resolve_device(),
+                            dtype=runtime.resolve_dtype())
+    step = flow_base.make_flow_step(model, infer, FLOW_HW, need_masks=True,
+                                    need_flow=True)
+    step(frames)  # warm-up
+    say("flow-refine", f"GMFlow refinement (128 channels, 6 layers; 1/8 in 2x2 "
+        f"and 1/4 in 8x8 windows, local radius 4 and 1, convex x4), bf16, "
+        f"random weights, {BATCH} frames = {P} bidirectional pairs at "
+        f"{FLOW_HW[0]}x{FLOW_HW[1]} (padded to 832x1440): set-up and warm-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [step(frames) for _ in range(TIMED_STEPS)]
+    elapsed = time.perf_counter() - t0
+    counts["flow_gmflow_refine"] = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_flow_outputs(outs)
+    expect = per_path(**{key: n * TIMED_STEPS for key, n in REFINE_STEP.items()})
+    if counts["flow_gmflow_refine"] != expect:
+        fail(f"refinement launches in {TIMED_STEPS} steps: "
+             f"{counts['flow_gmflow_refine']}, expected {REFINE_STEP} a step")
+    say("flow-refine", f"{TIMED_STEPS} steps: fwd_rgb/bwd_rgb "
+        f"{list(outs[0]['fwd_rgb'].shape)} uint8, masks "
+        f"{list(outs[0]['fwd_mask'].shape)} bool (fwd valid "
+        f"{float(outs[0]['fwd_mask'].mean()):.3f}), max-disp finite "
+        f"({', '.join(f'{m:.2f}' for m in outs[0]['max_disp'])}); launches "
+        f"{counts['flow_gmflow_refine']} ({REFINE_STEP} a step) ok")
+    say("flow-refine", f"{P * TIMED_STEPS / elapsed:.2f} pairs/s "
+        f"({elapsed / TIMED_STEPS * 1e3:.1f} ms per step of {P} pairs, host "
+        f"clock, H2D and D2H included; K1 + K2 at the 1/4 windows "
+        f"{6 * (rows['k1']['at_refine_windows']['ms'] + rows['k2']['at_refine_windows']['ms']):.1f}"
+        f" ms of it at their own times); peak memory {peak:.2f} GiB; on {card}")
+    del outs
+
+    # one pair's real activations: every kernel call held to its plain
+    # version; the flow against the plain path and the null path, with the
+    # band's random weights (whose refinement amplifies any last-bit
+    # difference into pixels on noise frames, so that the null check has
+    # little power) and with the same weights at half scale (as phase 29)
+    x = torch.from_numpy(frames[:2]).cuda()
+    with torch.inference_mode():
+        ds = resize2d(x.float(), FLOW_HW, method="cubic").to(torch.bfloat16)
+    half = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in half.parameters():
+            p.mul_(REFINE_WEIGHT_SCALE)
+    for scale, net in ((1.0, model), (REFINE_WEIGHT_SCALE, half)):
+        gmflow_pair("flow-refine", infer, net, ds, REFINE_STEP,
+                    f" (weights x{scale})")
+    del model, half, step, ds
+    torch.cuda.empty_cache()
+
+    # 31. RAFT's fused lookup: in f32 against the volume path, then the
+    # full-width step
+    cpu_raft = store.load_raft(cpu_rt)
+    gpu_raft = copy.deepcopy(cpu_raft).cuda()
+    g = imgs.cuda()
+    flow = {}
+    with torch.inference_mode():
+        for impl, expect in (("fused", per_path(K4=15)),
+                             ("volume", per_path(K4=15, K5=4))):
+            zero_counts()
+            flow[impl] = torch.cat(raft.infer_pairs(gpu_raft, g[:-1], g[1:],
+                                                    iters=4, corr_impl=impl))
+            if read_counts() != expect:
+                fail(f"raft-fused: {impl} launches {read_counts()}, expected "
+                     f"{expect}")
+    err = float((flow["fused"] - flow["volume"]).abs().max())
+    tol = 1e-4 * float(flow["volume"].abs().max())
+    ok = bool(torch.isfinite(flow["fused"]).all()) and err <= tol
+    say("raft-fused", f"RAFT (full widths) 2 pairs at 128x192, 4 iterations, "
+        f"f32 on the card: max |fused - volume| {err:.3e} px, tol {tol:.3e} px "
+        f"(1e-4 of the flow scale, max |flow| "
+        f"{float(flow['volume'].abs().max()):.2f}: the same sums in another "
+        f"order); launches: fused 15 K4 and no K5, volume 15 K4 + 4 K5 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fused RAFT lookup disagrees with the volume path")
+    del cpu_raft, gpu_raft, flow
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lazy_model, infer = flow_raft_band.build_pairs(runtime, iterations=RAFT_ITERS,
+                                                   corr_impl="fused")
+    model = lazy_model().to(device=runtime.resolve_device(),
+                            dtype=runtime.resolve_dtype())
+    step = flow_base.make_flow_step(model, infer, FLOW_HW, need_masks=True,
+                                    need_flow=True)
+    step(frames)  # warm-up
+    setup = time.perf_counter() - t0
+    zero_counts()
+    out, elapsed = synced(lambda: step(frames))
+    counts["flow_raft_fused"] = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_flow_outputs([out])
+    if counts["flow_raft_fused"] != per_path(K4=15):
+        fail(f"fused RAFT launches in one step: {counts['flow_raft_fused']}, "
+             f"expected 15 K4 and no K5")
+    say("raft-fused", f"RAFT --corr_impl fused, bf16 (lookup f32), random "
+        f"weights, {P} pairs at {FLOW_HW[0]}x{FLOW_HW[1]}, {RAFT_ITERS} "
+        f"iterations (set-up and warm-up {setup:.2f} s): one step "
+        f"{elapsed * 1e3:.1f} ms, {P / elapsed:.2f} pairs/s, peak memory "
+        f"{peak:.2f} GiB; the volume path (phase 13) {raft_volume['pairs_s']:.2f}"
+        f" pairs/s, peak memory {raft_volume['peak_gib']:.2f} GiB; launches "
+        f"{counts['flow_raft_fused']} (15 K4, no K5) ok; max-disp "
+        f"{', '.join(f'{m:.2f}' for m in out['max_disp'])}; on {card}")
+    del model, step, out
+    torch.cuda.empty_cache()
+    return counts
+
+
 def match_slabs(ours, theirs):
     """Match each valid instance of `theirs` to one of `ours` with its label,
     mask probabilities within 1e-4 and a decayed score within 5e-3 (the
@@ -1916,6 +2192,85 @@ def check_flow_outputs(outs):
         if not (out["max_disp"].shape == (P,) and np.isfinite(out["max_disp"]).all()
                 and np.isfinite(out["fwd"]).all() and np.isfinite(out["bwd"]).all()):
             fail(f"max_disp or flows not finite: {out['max_disp']}")
+
+
+def held(calls):
+    """-> ratios(key, out, ref, tols): records (max/tol, mean/tol, ok) of
+    out against ref in calls[key] and returns out."""
+    def ratios(key, out, ref, tols):
+        max_err, mean_err, ok = within(out, ref, tols)
+        calls[key].append((max_err / tols[0], mean_err / tols[1], ok))
+        return out
+    return ratios
+
+
+def norm_held(ratios):
+    """K4, each call held to its plain version under its bounds."""
+    from prisma_tpu_torch.ops.cuda import instance_norm as inorm
+
+    def norm_checked(x, eps=inorm.EPS, relu=False):
+        ref = inorm.instance_norm_relu_ref(x, eps, relu)
+        return ratios("K4", inorm.instance_norm_relu(x, eps, relu), ref,
+                      inorm.bounds(ref))
+    return norm_checked
+
+
+def gmflow_pair(phase, infer, net, ds, expect, label=""):
+    """One pair's real activations (ds[:1] -> ds[1:]) through GMFlow: every
+    kernel call held to its plain version under its bounds, `expect` calls
+    of each kernel; then the pair's flow with the plain versions in place of
+    the kernels, and with a plain path that rounds P to bf16 as K1/K2 do
+    (the null distance): the kernels' flow within 2x of it."""
+    from prisma_tpu_torch.models import gmflow as gm
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+    from prisma_tpu_torch.ops.cuda import instance_norm as inorm
+
+    calls = {key: [] for key in expect}
+    ratios = held(calls)
+    plain_p_bf16 = functools.partial(fa.flash_attention_ref, round_p=True)
+
+    def fa_checked(q, k, v, region_bands=None, win_w=0):
+        out = fa.flash_attention(q, k, v, region_bands=region_bands, win_w=win_w)
+        ref = plain_p_bf16(q, k, v, region_bands=region_bands, win_w=win_w)
+        return ratios("K1" if region_bands is None else "K2", out, ref,
+                      attn_tols(ref))
+
+    def streamed_checked(q, k, v, scale):
+        return ratios("K3", fa.flash_attention_streamed(q, k, v, scale),
+                      fa.flash_attention_streamed_ref(q, k, v, scale),
+                      fa.streamed_bounds(v))
+
+    paths = {
+        "kernels": (fa_checked, streamed_checked, norm_held(ratios)),
+        "plain": (fa.flash_attention_ref, fa.flash_attention_streamed_ref,
+                  inorm.instance_norm_relu_ref),
+        "plain_p_bf16": (plain_p_bf16, fa.flash_attention_streamed_ref,
+                         inorm.instance_norm_relu_ref)}
+    flows = {}
+    with torch.inference_mode():
+        for name, (attn, streamed, norm) in paths.items():
+            gm.flash_attention, gm.flash_attention_streamed, \
+                gm.instance_norm_relu = attn, streamed, norm
+            try:
+                flows[name] = torch.cat(infer(net, ds[:1], ds[1:])).float()
+            finally:
+                gm.flash_attention, gm.flash_attention_streamed, \
+                    gm.instance_norm_relu = (fa.flash_attention,
+                                             fa.flash_attention_streamed,
+                                             inorm.instance_norm_relu)
+    n_calls = {key: len(v) for key, v in calls.items()}
+    ok = n_calls == expect and all(r[2] for v in calls.values() for r in v)
+    say(phase, f"pair 0{label} (max |flow| {float(flows['plain'].abs().max()):.1f}"
+        f" px), every kernel call against its plain version on the real "
+        f"activations, worst |err| / tol (max, mean): " + "; ".join(
+            f"{key} x{len(v)} {max(r[0] for r in v):.3f}, "
+            f"{max(r[1] for r in v):.3f}" for key, v in calls.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{phase}: a kernel disagrees with its plain version on the "
+             f"flow path's activations ({n_calls} calls)")
+    null_check(phase, "flow" + label, flows["kernels"], flows["plain"],
+               flows["plain_p_bf16"], 1.0, unit="px")
 
 
 def null_check(phase, what, kernels, plain, null_path, span,

@@ -1,12 +1,12 @@
 """flow_gmflow band driver (counterpart of prisma_tpu/bands/flow_gmflow_band.py;
 reference `bands/flow_gmflow.py`): GMFlow at 0.75 scale, /16 padding, swin
 transformer + global matching, bidirectional; see bands/flow_base.py for the
-shared output contract.
+shared output contract. --num_scales 2 runs gmflow_with_refine (a 1/4-scale
+refinement with local matching, /32 padding, a convex x4 upsample).
 
 The reference only computes backward flow when masks or backwards are asked
 for (flow_gmflow.py:88); here forward and backward always ride one doubled
-batch, as in the JAX package, and the outputs are unchanged. The 2-scale
-refinement (--num_scales 2, local correlation) is not ported yet and raises.
+batch, as in the JAX package, and the outputs are unchanged.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ def build_pairs(runtime: RuntimeConfig, inference_size=None,
 
     inference_size: optional (h, w): resize the inputs to that size for
     inference instead of padding to /16, then resize and rescale the flow
-    back (reference flow_gmflow.py --inference_size)."""
+    back (reference flow_gmflow.py --inference_size). cfg selects the model
+    (gm.refine_config() for the 2-scale gmflow_with_refine)."""
     cfg = cfg or gm.GMFlowConfig()
     model = functools.partial(load_gmflow, runtime, cfg)  # after resolve
     infer = gm.infer_pairs
@@ -67,7 +68,8 @@ def main(argv=None):
                         help="(h, w) inference resize instead of /16 padding")
     parser.add_argument("--num_scales", type=int, default=1,
                         help="1 = basic gmflow (1/8 feature); 2 = refinement "
-                             "(not ported yet)")
+                             "with the additional 1/4 feature (reference "
+                             "flow_gmflow.py:237)")
     parser.add_argument("--upsample_factor", type=int, default=None)
     parser.add_argument("--attn_splits_list", type=int, nargs="+",
                         default=None)
@@ -77,19 +79,16 @@ def main(argv=None):
                         default=None, help="-1 = global propagation")
     parser.add_argument("--padding_factor", type=int, default=None)
     args = parser.parse_args(argv)
-    # one scale, global matching and global propagation: other lists are
-    # the refinement's
-    if (any(len(v) != 1 for v in (args.attn_splits_list, args.corr_radius_list,
-                                  args.prop_radius_list) if v)
-            or any(v != [-1] for v in (args.corr_radius_list,
-                                       args.prop_radius_list) if v)):
-        raise NotImplementedError(gm.REFINE_NOT_PORTED)
-    kw = {name: getattr(args, name) for name in ("upsample_factor",
-                                                 "padding_factor")
-          if getattr(args, name) is not None}
-    if args.attn_splits_list:
-        kw["attn_splits"] = args.attn_splits_list[0]
-    cfg = gm.GMFlowConfig(num_scales=args.num_scales, **kw)
+    kw = {}
+    if args.num_scales > 1:
+        kw = dict(num_scales=2, upsample_factor=4, padding_factor=32)
+    for name in ("upsample_factor", "padding_factor"):
+        if getattr(args, name) is not None:
+            kw[name] = getattr(args, name)
+    for name in ("attn_splits_list", "corr_radius_list", "prop_radius_list"):
+        if getattr(args, name) is not None:
+            kw[name] = tuple(getattr(args, name))
+    cfg = gm.GMFlowConfig(**kw) if kw else None
     run_guarded(BAND, run, args.input, output=args.output,
                 subpath=args.subpath, backwards=args.backwards,
                 mask=args.mask, subpath_mask=args.subpath_mask,

@@ -1,30 +1,38 @@
-"""GMFlow optical flow, 1-scale (counterpart of prisma_tpu/models/gmflow.py).
+"""GMFlow optical flow (counterpart of prisma_tpu/models/gmflow.py).
 
 The reference's vendored GMFlow (`bands/gmflow/gmflow.py`, `transformer.py`,
-`matching.py`, `backbone.py`, `position.py`): a 1/8 CNN encoder with
-instance norms, a sine position embedding added inside 2x2 attention
-splits, 6 swin-style self + cross transformer blocks (shifted windows on odd
-layers), global correlation softmax matching (bidirectional: the backward
-direction swaps queries and keys), global flow-propagation self-attention,
-and RAFT-style convex x8 upsampling.
+`matching.py`, `backbone.py`, `position.py`, `trident_conv.py`): a 1/8 CNN
+encoder with instance norms, a sine position embedding added inside 2x2
+attention splits, 6 swin-style self + cross transformer blocks (shifted
+windows on odd layers), global correlation softmax matching (bidirectional:
+the backward direction swaps queries and keys), global flow-propagation
+self-attention, and RAFT-style convex x8 upsampling. The 2-scale
+gmflow_with_refine (`refine_config()`, the bands' --num_scales 2) runs
+layer3 at stride 1 and a weight-shared trident conv for a 1/8 and a 1/4
+feature, then refines at 1/4: feature1 warped by the upsampled flow, 8x8
+attention splits, local correlation matching (radius 4), local-window
+propagation (radius 1) and a convex x4 upsample.
 
 The modules carry the reference checkpoint's names (`backbone.*`,
 `transformer.layers.{i}.{self_attn,cross_attn_ffn}.*`, `feature_flow_attn.*`,
-`upsampler.*`), so `gmflow_sintel-0c07dcb3.pth` loads with strict=True. The
-public functions keep the JAX layout at their boundary ([B, H, W, C]); the
-backbone runs NCHW. The kernels carry the model on a CUDA device:
+`upsampler.*`), so `gmflow_sintel-0c07dcb3.pth` and
+`gmflow_with_refine_sintel-3ed1cf48.pth` load with strict=True. The public
+functions keep the JAX layout at their boundary ([B, H, W, C]); the backbone
+runs NCHW. The kernels carry the model on a CUDA device:
 - every backbone instance norm is K4 (`ops/cuda/instance_norm.py`);
 - every window attention is K1 (unshifted layers) or K2 (shifted layers,
   the region bias from per-window bands), `ops/cuda/flash_attention.py`;
 - global matching and global propagation are K3
   (`flash_attention_streamed`), with f32 values.
-On the CPU each wrapper takes its plain version. The 2-scale refinement
-(`refine_config`) is not ported yet.
+On the CPU each wrapper takes its plain version. The refinement's warp,
+local matching and local propagation are plain torch, as the JAX package
+computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from dataclasses import dataclass
 
@@ -42,9 +50,6 @@ from prisma_tpu_torch.ops.resize import resize2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-REFINE_NOT_PORTED = ("GMFlow refinement (num_scales=2, local correlation and "
-                     "local propagation) is not ported yet: ROADMAP.md queue 1 "
-                     "item 11, 'GMFlow refine'")
 
 
 @dataclass(frozen=True)
@@ -54,12 +59,43 @@ class GMFlowConfig:
     attn_splits: int = 2
     ffn_dim_expansion: int = 4
     upsample_factor: int = 8
-    padding_factor: int = 16
+    # 2-scale refinement (gmflow_with_refine, reference gmflow.py:75-90):
+    # the per-scale lists default to the reference CLI's ((2,)/(-1,)/(-1,)
+    # at one scale; (2, 8)/(-1, 4)/(-1, 1) for refinement,
+    # flow_gmflow.py:243-245); -1 is global matching or propagation
     num_scales: int = 1
+    attn_splits_list: tuple | None = None
+    corr_radius_list: tuple | None = None
+    prop_radius_list: tuple | None = None
+    padding_factor: int = 16
 
     def __post_init__(self):
-        if self.num_scales != 1:
-            raise NotImplementedError(REFINE_NOT_PORTED)
+        if self.num_scales not in (1, 2):
+            raise ValueError(f"num_scales must be 1 or 2, not {self.num_scales}")
+        for name in ("attn_splits_list", "corr_radius_list",
+                     "prop_radius_list"):
+            given = getattr(self, name)
+            if given is not None and len(given) != self.num_scales:
+                raise ValueError(f"{name} {given} needs one entry per scale "
+                                 f"({self.num_scales})")
+
+    def scale_lists(self):
+        """Resolved (attn_splits, corr_radius, prop_radius) per scale."""
+        if self.num_scales == 1:
+            return ((self.attn_splits_list or (self.attn_splits,)),
+                    (self.corr_radius_list or (-1,)),
+                    (self.prop_radius_list or (-1,)))
+        return ((self.attn_splits_list or (2, 8)),
+                (self.corr_radius_list or (-1, 4)),
+                (self.prop_radius_list or (-1, 1)))
+
+
+def refine_config(**overrides) -> GMFlowConfig:
+    """The reference gmflow_with_refine configuration (2-scale, x4 upsample,
+    /32 padding)."""
+    kw = dict(num_scales=2, upsample_factor=4, padding_factor=32)
+    kw.update(overrides)
+    return GMFlowConfig(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -79,16 +115,22 @@ class ResidualBlock(nn.Module):
 
 
 class CNNEncoder(nn.Module):
-    def __init__(self, out_channels: int):
+    def __init__(self, out_channels: int, num_scales: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.layer1 = nn.Sequential(ResidualBlock(64, 64, 1),
                                     ResidualBlock(64, 64, 1))
         self.layer2 = nn.Sequential(ResidualBlock(64, 96, 2),
                                     ResidualBlock(96, 96, 1))
-        self.layer3 = nn.Sequential(ResidualBlock(96, 128, 2),
+        # two scales: layer3 stays at 1/4 (reference backbone.py:59-62)
+        self.layer3 = nn.Sequential(ResidualBlock(96, 128, 1 if num_scales > 1
+                                                  else 2),
                                     ResidualBlock(128, 128, 1))
         self.conv2 = nn.Conv2d(128, out_channels, 1)
+        # the reference's MultiScaleTridentConv: one bias-free 3x3 weight
+        # applied at strides 1 and 2 (key backbone.trident_conv.weight)
+        self.trident_conv = (nn.Conv2d(out_channels, out_channels, 3,
+                                       bias=False) if num_scales > 1 else None)
 
 
 class TransformerLayer(nn.Module):
@@ -134,7 +176,7 @@ class GMFlow(nn.Module):
         super().__init__()
         self.cfg = cfg
         C = cfg.feature_channels
-        self.backbone = CNNEncoder(C)
+        self.backbone = CNNEncoder(C, cfg.num_scales)
         self.transformer = FeatureTransformer(cfg)
         self.feature_flow_attn = FeatureFlowAttention(C)
         self.upsampler = nn.Sequential(
@@ -171,9 +213,11 @@ def init_params(model: GMFlow, generator: torch.Generator) -> GMFlow:
 # CNN backbone (1/8, instance-norm residual stages), NCHW
 # ---------------------------------------------------------------------------
 
-def backbone_forward(bb: CNNEncoder, x: torch.Tensor) -> torch.Tensor:
-    """x [B, 3, H, W] normalised, contiguous -> [B, C, H/8, W/8]; its 15
-    instance norms go through `instance_norm_relu` (K4 on the card)."""
+def backbone_forward(bb: CNNEncoder, x: torch.Tensor):
+    """x [B, 3, H, W] normalised, contiguous -> [B, C, H/8, W/8] (one
+    scale), or [lo [B, C, H/8, W/8], hi [B, C, H/4, W/4]] (two scales: the
+    trident conv at strides 2 and 1 over the 1/4 feature); its 15 instance
+    norms go through `instance_norm_relu` (K4 on the card)."""
     x = instance_norm_relu(pnn.conv2d(bb.conv1, x, stride=2, padding=3),
                            relu=True)
     for block in (*bb.layer1, *bb.layer2, *bb.layer3):
@@ -186,7 +230,12 @@ def backbone_forward(bb: CNNEncoder, x: torch.Tensor) -> torch.Tensor:
             x = instance_norm_relu(pnn.conv2d(block.downsample[0], x, stride=s),
                                    relu=False)
         x = F.relu(x + y)
-    return pnn.conv2d(bb.conv2, x)
+    x = pnn.conv2d(bb.conv2, x)
+    if bb.trident_conv is None:
+        return x
+    hi = pnn.conv2d(bb.trident_conv, x, padding=1)
+    lo = pnn.conv2d(bb.trident_conv, x, stride=2, padding=1)
+    return [lo, hi]
 
 
 # ---------------------------------------------------------------------------
@@ -425,11 +474,102 @@ def flow_propagation(p: FeatureFlowAttention, feature0: torch.Tensor,
     return out.to(flow.dtype).reshape(B, H, W, 2)
 
 
+def _window_taps(radius: int):
+    """The (dy, dx) offsets of a (2r+1)² window, dy slow and dx fast (the
+    reference's window_grid order)."""
+    return list(itertools.product(range(-radius, radius + 1), repeat=2))
+
+
+def _tap(xp: torch.Tensor, r: int, dy: int, dx: int, H: int, W: int):
+    """The [B, H, W, C] slice of an r-padded xp shifted by (dy, dx)."""
+    return xp[:, r + dy:r + dy + H, r + dx:r + dx + W]
+
+
+def local_correlation_softmax(feature0: torch.Tensor, feature1: torch.Tensor,
+                              radius: int) -> torch.Tensor:
+    """Windowed correlation softmax matching (reference matching.py:39-83,
+    the JAX package's taps form): per pixel, the dot products with the
+    (2r+1)² integer-offset window of feature1 (zeros outside), taps off the
+    image masked to -1e9, an f32 softmax, and the expected offset as the flow
+    [B, H, W, 2] in the feature dtype. The dot products are taken in f32."""
+    B, H, W, C = feature0.shape
+    r = radius
+    f0 = feature0.float()
+    f1p = F.pad(feature1.float(), (0, 0, r, r, r, r))
+    taps = _window_taps(r)
+    corr = torch.stack([(f0 * _tap(f1p, r, dy, dx, H, W)).sum(-1)
+                        for dy, dx in taps], dim=-1) * C ** -0.5
+    offs = torch.tensor(taps, dtype=torch.float32, device=feature0.device)
+    oy, ox = offs[:, 0], offs[:, 1]
+    gx = torch.arange(W, dtype=torch.float32, device=feature0.device)[:, None]
+    gy = torch.arange(H, dtype=torch.float32, device=feature0.device)[:, None, None]
+    valid = ((gx + ox >= 0) & (gx + ox < W) & (gy + oy >= 0) & (gy + oy < H))
+    prob = torch.softmax(corr.masked_fill(~valid, -1e9), dim=-1)
+    flow = torch.stack([(prob * ox).sum(-1), (prob * oy).sum(-1)], dim=-1)
+    return flow.to(feature0.dtype)
+
+
+def _flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp feature [B, H, W, C] by flow [B, H, W, 2] (reference geometry.py
+    flow_warp: bilinear grid_sample with align_corners=True, zeros outside):
+    each of the four corners off the map contributes zero. The blend is in
+    f32, cast back to the feature's dtype, in the JAX package's order."""
+    B, H, W, C = feature.shape
+    dev = feature.device
+    fx = flow[..., 0].float() + torch.arange(W, dtype=torch.float32, device=dev)
+    fy = flow[..., 1].float() + torch.arange(H, dtype=torch.float32,
+                                             device=dev)[:, None]
+    x0, y0 = fx.floor(), fy.floor()
+    ax, ay = (fx - x0)[..., None], (fy - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    flat = feature.reshape(B * H * W, C)
+    base = (torch.arange(B, device=dev) * (H * W))[:, None, None]
+
+    def corner(yi, xi):
+        valid = ((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H))[..., None]
+        idx = base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        return flat[idx.reshape(-1)].view(B, H, W, C), valid
+
+    out = None
+    for dy, wy in ((0, 1 - ay), (1, ay)):
+        v0, m0 = corner(y0 + dy, x0)
+        v1, m1 = corner(y0 + dy, x0 + 1)
+        row = v0 * (1 - ax) * m0 + v1 * ax * m1
+        out = row * wy if out is None else out + row * wy
+    return out.to(feature.dtype)
+
+
+def flow_propagation_local(p: FeatureFlowAttention, feature0: torch.Tensor,
+                           flow: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """Local-window flow propagation (reference transformer.py:377-409):
+    queries q_proj(feature0) and keys k_proj(feature0), the keys from the
+    raw feature (unlike the global path's k_proj(q_proj(x))), scored over
+    the (2r+1)² zero-padded neighbourhood with no mask (the reference's
+    unfold zero-pads, so border taps score 0 and still take softmax mass);
+    the values are the zero-padded flow window. Scores in f32."""
+    B, H, W, C = feature0.shape
+    r = radius
+    q = pnn.linear(p.q_proj, feature0).float()
+    kp = F.pad(pnn.linear(p.k_proj, feature0).float(), (0, 0, r, r, r, r))
+    fp = F.pad(flow.float(), (0, 0, r, r, r, r))
+    taps = _window_taps(r)
+    s = torch.stack([(q * _tap(kp, r, dy, dx, H, W)).sum(-1)
+                     for dy, dx in taps], dim=-1) * C ** -0.5
+    v = torch.stack([_tap(fp, r, dy, dx, H, W) for dy, dx in taps], dim=-2)
+    out = (torch.softmax(s, dim=-1)[..., None] * v).sum(-2)
+    return out.to(flow.dtype)
+
+
 def forward(model: GMFlow, img0: torch.Tensor, img1: torch.Tensor,
             pred_bidir: bool = True) -> torch.Tensor:
     """img0/1 [B, H, W, 3] in [0, 255], in the model's dtype, H and W
-    multiples of 16 -> flow [B or 2B, H, W, 2] in that dtype (forward rows
-    first, then backward when bidir)."""
+    multiples of 16 (32 for two scales) -> flow [B or 2B, H, W, 2] in that
+    dtype (forward rows first, then backward when bidir).
+
+    Two scales (reference gmflow.py:93-166): the 1/4 features carry forward
+    and backward as a doubled batch, feature1 is warped by the scale-0 flow
+    upsampled x2, and the flow is refined by local matching and local
+    propagation before the convex x4 upsample."""
     cfg = model.cfg
     mean = torch.tensor(IMAGENET_MEAN, dtype=img0.dtype, device=img0.device)
     std = torch.tensor(IMAGENET_STD, dtype=img0.dtype, device=img0.device)
@@ -438,16 +578,39 @@ def forward(model: GMFlow, img0: torch.Tensor, img1: torch.Tensor,
 
     B = img0.shape[0]
     x = torch.cat([n0, n1]).permute(0, 3, 1, 2).contiguous()
-    feats = backbone_forward(model.backbone, x).permute(0, 2, 3, 1)
-    feature0, feature1 = add_position(feats[:B], feats[B:], cfg.attn_splits)
-    feature0, feature1 = transformer_forward(model.transformer, feature0,
-                                             feature1, cfg.attn_splits)
-
-    flow = global_correlation_softmax(feature0, feature1,
-                                      pred_bidir).to(feature0.dtype)
-    if pred_bidir:
-        feature0 = torch.cat([feature0, feature1])
-    flow = flow_propagation(model.feature_flow_attn, feature0, flow)
+    feats = backbone_forward(model.backbone, x)
+    if cfg.num_scales == 1:
+        feats = [feats]
+    splits_l, corr_l, prop_l = cfg.scale_lists()
+    flow = None
+    for si, feats_s in enumerate(feats):
+        feats_s = feats_s.permute(0, 2, 3, 1)
+        feature0, feature1 = feats_s[:B], feats_s[B:]
+        if si > 0:
+            if pred_bidir:
+                feature0, feature1 = (torch.cat([feature0, feature1]),
+                                      torch.cat([feature1, feature0]))
+            flow = (resize2d(flow.float(), feature0.shape[1:3],
+                             method="linear", align_corners=True)
+                    * 2.0).to(feature0.dtype)
+            feature1 = _flow_warp(feature1, flow)
+        feature0, feature1 = add_position(feature0, feature1, splits_l[si])
+        feature0, feature1 = transformer_forward(model.transformer, feature0,
+                                                 feature1, splits_l[si])
+        if corr_l[si] == -1:
+            flow_pred = global_correlation_softmax(
+                feature0, feature1, pred_bidir and si == 0).to(feature0.dtype)
+        else:
+            flow_pred = local_correlation_softmax(feature0, feature1,
+                                                  corr_l[si])
+        flow = flow_pred if flow is None else flow + flow_pred
+        if pred_bidir and si == 0:
+            feature0 = torch.cat([feature0, feature1])
+        if prop_l[si] == -1:
+            flow = flow_propagation(model.feature_flow_attn, feature0, flow)
+        else:
+            flow = flow_propagation_local(model.feature_flow_attn, feature0,
+                                          flow, prop_l[si])
 
     concat = torch.cat([flow.to(feature0.dtype), feature0], dim=-1)
     y = F.relu(pnn.conv2d(model.upsampler[0], concat.permute(0, 3, 1, 2),
@@ -461,7 +624,7 @@ def infer_pairs(model: GMFlow, image1: torch.Tensor, image2: torch.Tensor,
     """Bidirectional inference -> (fwd, bwd) [B, H, W, 2].
 
     inference_size=None: pad H and W to a multiple of the config's
-    padding_factor (16), infer, unpad (reference flow_gmflow.py:72-74).
+    padding_factor (16; 32 for two scales), infer, unpad (reference flow_gmflow.py:72-74).
     inference_size=(h, w): bilinear align_corners resize to (h, w), infer
     without padding, resize the flow back in f32 and rescale its components
     by the size ratio (reference flow_gmflow.py:78-98)."""

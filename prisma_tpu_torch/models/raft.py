@@ -18,7 +18,11 @@ convolutions run NCHW. The kernels carry the model on a CUDA device:
   one launch for all four levels.
 On the CPU each wrapper takes its plain version. The correlation pyramid is
 a plain matrix product (the JAX package leaves it to XLA too), and the
-refinement loop runs eagerly in Python. The GRU is the reference's concat
+refinement loop runs eagerly in Python. `corr_impl="fused"` (the
+reference's alt_cuda_corr) skips the pyramid of volumes for inputs whose
+volume does not fit the card: each iteration samples a pooled pyramid of
+fmap2 and dots it with fmap1, in plain torch as the JAX package computes it
+outside any Pallas kernel, so that path launches no K5. The GRU is the reference's concat
 form; the mask head and the convex upsampling run once, after the loop.
 """
 
@@ -35,6 +39,11 @@ from prisma_tpu_torch.ops.cuda.instance_norm import instance_norm_relu
 from prisma_tpu_torch.ops.cuda.raft_lookup import window_lookup
 
 BN_EPS = 1e-5
+# the JAX band's --corr_impl names: "fused" is the O(HW)-memory lookup; the
+# others are TPU formulations of the one volume lookup, K5 here
+CORR_IMPLS = ("volume_onehot", "volume_onehot_xf", "volume_onehot_packed",
+              "volume", "fused", "volume_pallas", "volume_gk")
+TAP_CHUNK = 9  # window taps the fused lookup samples at once
 
 
 @dataclass(frozen=True)
@@ -228,6 +237,82 @@ def corr_lookup(pyramid: list[torch.Tensor], coords: torch.Tensor,
     return out.reshape(B, H1, W1, -1)
 
 
+def build_fmap_pyramid(fmap2: torch.Tensor,
+                       num_levels: int) -> list[torch.Tensor]:
+    """fmap2 [B, H, W, C] -> num_levels maps, each a 2x2 average pool of the
+    last with an odd last row or column dropped first (the fused lookup's
+    pyramid: pooling commutes with the dot product, so no volume is
+    built)."""
+    pyramid = [fmap2]
+    f = fmap2
+    for _ in range(num_levels - 1):
+        B, h, w, C = f.shape
+        f = f[:, :h - h % 2, :w - w % 2].reshape(
+            B, h // 2, 2, w // 2, 2, C).mean(dim=(2, 4))
+        pyramid.append(f)
+    return pyramid
+
+
+def _bilinear_gather_feat(fmap: torch.Tensor, x: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+    """fmap [B, H, W, C]; x, y [B, K] f32 -> [B, K, C] f32 bilinear samples,
+    a corner off the map contributing zero."""
+    B, H, W, C = fmap.shape
+    x0, y0 = x.floor(), y.floor()
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    flat = fmap.reshape(B * H * W, C)
+    base = (torch.arange(B, device=fmap.device) * (H * W))[:, None]
+
+    def corner(xi, yi, wgt):
+        valid = ((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H))[..., None]
+        idx = base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        vals = flat.index_select(0, idx.reshape(-1)).view(*idx.shape, C)
+        # the JAX package's vals * wgt * valid: the same values (valid is 0
+        # or 1), one pass over [B, K, C] fewer
+        return vals * (wgt * valid)
+
+    out = corner(x0, y0, (1 - fx) * (1 - fy))
+    out += corner(x0 + 1, y0, fx * (1 - fy))  # in place: one buffer, same sums
+    out += corner(x0, y0 + 1, (1 - fx) * fy)
+    out += corner(x0 + 1, y0 + 1, fx * fy)
+    return out
+
+
+def corr_lookup_fused(fmap1: torch.Tensor, fmap2_pyramid: list[torch.Tensor],
+                      coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """The O(HW)-memory window lookup (JAX `corr_lookup_fused`, the
+    reference's alt_cuda_corr): per level and tap, a bilinear sample of the
+    pooled fmap2 dotted with fmap1, the (2r+1)² taps in chunks of TAP_CHUNK
+    so that peak memory stays O(HW·TAP_CHUNK·C). fmap1 [B, H1, W1, C],
+    pyramid levels [B, h, w, C], coords [B, H1, W1, 2] f32 (x, y) ->
+    [B, H1, W1, levels·(2r+1)²] f32, each window in the reference's order (x
+    on the slow axis), as K5's volume path lays it out. 1/sqrt(C) is folded
+    into fmap1 as the volume path folds it."""
+    B, H1, W1, C = fmap1.shape
+    n = 2 * radius + 1
+    if (n * n) % TAP_CHUNK:
+        raise ValueError(f"{TAP_CHUNK} taps a chunk do not divide {n * n} taps")
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                        device=fmap1.device)
+    ox, oy = offs.repeat_interleave(n), offs.repeat(n)
+    cx = coords[..., 0].reshape(B, H1 * W1, 1)
+    cy = coords[..., 1].reshape(B, H1 * W1, 1)
+    f1 = (fmap1.float() * C ** -0.5).reshape(B, H1 * W1, C, 1)
+    out = []
+    for level, f2 in enumerate(fmap2_pyramid):
+        if f2.shape[1] * f2.shape[2] == 0:  # a level pooled to nothing
+            out.append(f1.new_zeros(B, H1 * W1, n * n))
+            continue
+        for t0 in range(0, n * n, TAP_CHUNK):
+            sx = (cx / 2 ** level + ox[t0:t0 + TAP_CHUNK]).reshape(B, -1)
+            sy = (cy / 2 ** level + oy[t0:t0 + TAP_CHUNK]).reshape(B, -1)
+            samples = _bilinear_gather_feat(f2, sx, sy).reshape(
+                B, H1 * W1, TAP_CHUNK, C)
+            out.append(torch.matmul(samples, f1)[..., 0])
+    return torch.cat(out, dim=-1).reshape(B, H1, W1, -1)
+
+
 # ---------------------------------------------------------------------------
 # Update block, NCHW
 # ---------------------------------------------------------------------------
@@ -295,15 +380,19 @@ def coords_grid(B: int, H: int, W: int, device) -> torch.Tensor:
 
 
 def forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
-            iters: int | None = None, fmaps=None):
+            iters: int | None = None, fmaps=None, corr_impl: str = "volume"):
     """image1/2 [B, H, W, 3] in [0, 255], in the model's dtype, H and W
     multiples of 8 -> (flow_low [B, H/8, W/8, 2], flow_up [B, H, W, 2]),
     both f32: the reference's test-mode outputs (raft.py:143-144).
 
     fmaps: optional precomputed NCHW (fmap1, fmap2), so that a caller whose
     doubled batch repeats images (infer_pairs) runs fnet once per image.
+    corr_impl: "fused" for the O(HW)-memory lookup (`corr_lookup_fused`);
+    any other name of CORR_IMPLS for the correlation volume and K5.
     Coordinates stay f32; the correlation and the flow are cast to the
     feature dtype before the motion encoder."""
+    if corr_impl not in CORR_IMPLS:
+        raise ValueError(f"corr_impl {corr_impl!r} not in {CORR_IMPLS}")
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     B = image1.shape[0]
@@ -313,7 +402,18 @@ def forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
         fm = encoder_forward(model.fnet, torch.cat([img1, img2]))
         fmaps = fm[:B], fm[B:]
     fmap1, fmap2 = fmaps
-    pyramid = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels)
+    if corr_impl == "fused":
+        f1 = fmap1.permute(0, 2, 3, 1)
+        f2_pyramid = build_fmap_pyramid(fmap2.permute(0, 2, 3, 1),
+                                        cfg.corr_levels)
+
+        def lookup(coords):
+            return corr_lookup_fused(f1, f2_pyramid, coords, cfg.corr_radius)
+    else:
+        pyramid = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels)
+
+        def lookup(coords):
+            return corr_lookup(pyramid, coords, cfg.corr_radius)
 
     cnet = encoder_forward(model.cnet, img1)
     net = torch.tanh(cnet[:, :cfg.hidden_dim])
@@ -326,7 +426,7 @@ def forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     coords1 = coords0
     dtype = fmap1.dtype
     for _ in range(iters):
-        corr = corr_lookup(pyramid, coords1, cfg.corr_radius)
+        corr = lookup(coords1)
         flow = coords1 - coords0
         motion = motion_encoder(ub.encoder, flow.to(dtype).permute(0, 3, 1, 2),
                                 corr.to(dtype).permute(0, 3, 1, 2))
@@ -340,11 +440,12 @@ def forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
 
 
 def infer_pairs(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
-                iters: int | None = None):
+                iters: int | None = None, corr_impl: str = "volume"):
     """Bidirectional inference in one doubled batch (reference
     flow_raft.py:105-107): image1/2 [B, H, W, 3] in [0, 255] -> (fwd, bwd)
     [B, H, W, 2] f32. Pads to a multiple of 8 (centred, edge-replicated) and
-    back; fnet runs once over the 2B images of the doubled batch."""
+    back; fnet runs once over the 2B images of the doubled batch. corr_impl:
+    see forward."""
     B = image1.shape[0]
     i1, pads = pad_to_multiple(image1)
     i2, _ = pad_to_multiple(image2)
@@ -352,7 +453,7 @@ def infer_pairs(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     b = torch.cat([i2, i1])
     fm = encoder_forward(model.fnet, _nchw(2.0 * (a / 255.0) - 1.0))
     fmaps = (fm, torch.cat([fm[B:], fm[:B]]))
-    _, flow_up = forward(model, a, b, iters, fmaps=fmaps)
+    _, flow_up = forward(model, a, b, iters, fmaps=fmaps, corr_impl=corr_impl)
     flow_up = unpad(flow_up, pads)
     return flow_up[:B], flow_up[B:]
 

@@ -4,8 +4,8 @@
         [--steps 5] [--out FILE]
 
     --band: depth_anything, depth_anything_metric, depth_marigold,
-    depth_midas, depth_patchfusion, depth_zoedepth, mask, flow_gmflow or
-    flow_raft
+    depth_midas, depth_patchfusion, depth_zoedepth, mask, flow_gmflow,
+    flow_gmflow_refine (--num_scales 2) or flow_raft
 
 Builds the band's step as chip_smoke.py does (bf16, random weights from a
 seed, uint8 1080p frames at batch 8; depth_patchfusion one frame a step, at
@@ -30,6 +30,10 @@ prints:
   matrix NMS, the upsample to 1080p), composite and SDF; flow_gmflow: input
   resize, backbone, transformer, global
   matching, propagation, upsampler, the HSV and consistency epilogue;
+  flow_gmflow_refine: input resize, the 2-scale backbone, the 1/8 scale's
+  transformer, matching and propagation, the flow upsample and warp, the
+  1/4 scale's transformer, local matching and local propagation, upsampler
+  + convex x4, the epilogue;
   flow_raft: input resize, fnet + cnet, the correlation pyramid, the 20
   iterations' K5 lookup, motion encoder, GRU and flow head, mask head +
   convex upsample, the epilogue);
@@ -356,9 +360,12 @@ def depth_patchfusion_step(runtime: RuntimeConfig, frames: np.ndarray):
             t["frame"] - t["coarse"] - 49 / 8 * batch}
 
 
-def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
-    """-> (step, {stage: device ms on the window already on the card}): the
-    band's step over 7 bidirectional pairs with masks and flows returned."""
+def _gmflow_setup(runtime: RuntimeConfig, frames: np.ndarray, cfg):
+    """The GMFlow band's step for cfg, warmed up, and its inputs on the
+    card: -> (model, infer, step, (x, ds, xin, B), stage helpers). x: the
+    uint8 frames; ds: resized to the band's scale; xin: the backbone's
+    normalised, padded NCHW input of the 2B images; the helpers time the
+    shared stages: input resize, upsampler + convex upsample, epilogue."""
     import torch.nn.functional as F
 
     from prisma_tpu_torch.bands import flow_base, flow_gmflow_band
@@ -369,7 +376,7 @@ def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
     from prisma_tpu_torch.ops.flow import compute_fwdbwd_mask
     from prisma_tpu_torch.ops.resize import resize2d
 
-    lazy_model, infer = flow_gmflow_band.build_pairs(runtime)
+    lazy_model, infer = flow_gmflow_band.build_pairs(runtime, cfg=cfg)
     model = lazy_model().to(device=runtime.resolve_device(),
                             dtype=runtime.resolve_dtype())
     H, W = frames.shape[1:3]
@@ -379,17 +386,52 @@ def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
     step(frames)  # warm-up
 
     dtype = runtime.resolve_dtype()
-    cfg = model.cfg
     x = torch.from_numpy(frames).to(runtime.resolve_device())
     with torch.inference_mode():
         ds = resize2d(x.float(), (dh, dw), method="cubic").to(dtype)
-        i1, _ = raft.pad_to_multiple(ds[:-1], cfg.padding_factor)
-        i2, _ = raft.pad_to_multiple(ds[1:], cfg.padding_factor)
-        B = i1.shape[0]
+        i1, _ = raft.pad_to_multiple(ds[:-1], model.cfg.padding_factor)
+        i2, _ = raft.pad_to_multiple(ds[1:], model.cfg.padding_factor)
         mean = torch.tensor(gm.IMAGENET_MEAN, dtype=dtype, device=x.device)
         std = torch.tensor(gm.IMAGENET_STD, dtype=dtype, device=x.device)
         xin = ((torch.cat([i1, i2]) / 255.0 - mean) / std).permute(0, 3, 1, 2) \
             .contiguous()
+        fwd, bwd = (f.float() for f in infer(model, ds[:-1], ds[1:]))
+
+    def resize():
+        return resize2d(x.float(), (dh, dw), method="cubic")
+
+    def upsample(flow, feature):
+        concat = torch.cat([flow, feature], dim=-1).permute(0, 3, 1, 2)
+        y = F.relu(pnn.conv2d(model.upsampler[0], concat, padding=1))
+        mask = pnn.conv2d(model.upsampler[2], y).permute(0, 2, 3, 1)
+        return raft.convex_upsample(flow, mask, model.cfg.upsample_factor)
+
+    def epilogue():
+        enc.process_flow(fwd)
+        enc.process_flow(bwd)
+        compute_fwdbwd_mask(fwd, bwd)
+
+    return model, infer, step, (x, ds, xin, i1.shape[0]), \
+        (resize, upsample, epilogue)
+
+
+def _rest_of_infer(stages: dict, total: float) -> dict:
+    """stages with infer_pairs' time outside the timed stages added."""
+    stages["the rest of infer_pairs (pad, position, casts)"] = total - sum(
+        v for k, v in stages.items() if not k.startswith(("input", "HSV")))
+    return stages
+
+
+def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the window already on the card}): the
+    band's step over 7 bidirectional pairs with masks and flows returned."""
+    from prisma_tpu_torch.models import gmflow as gm
+
+    model, infer, step, (x, ds, xin, B), (resize, upsample, epilogue) = \
+        _gmflow_setup(runtime, frames, gm.GMFlowConfig())
+    cfg = model.cfg
+    dtype = runtime.resolve_dtype()
+    with torch.inference_mode():
         feats = gm.backbone_forward(model.backbone, xin).permute(0, 2, 3, 1)
         f0, f1 = gm.add_position(feats[:B], feats[B:], cfg.attn_splits)
         t0, t1 = gm.transformer_forward(model.transformer, f0, f1,
@@ -397,23 +439,8 @@ def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
         flow = gm.global_correlation_softmax(t0, t1, True).to(dtype)
         both = torch.cat([t0, t1])
         prop = gm.flow_propagation(model.feature_flow_attn, both, flow)
-
-        def upsample():
-            concat = torch.cat([prop, both], dim=-1).permute(0, 3, 1, 2)
-            y = F.relu(pnn.conv2d(model.upsampler[0], concat, padding=1))
-            mask = pnn.conv2d(model.upsampler[2], y).permute(0, 2, 3, 1)
-            return raft.convex_upsample(prop, mask, cfg.upsample_factor)
-
-        fwd, bwd = (f.float() for f in infer(model, ds[:-1], ds[1:]))
-
-        def epilogue():
-            enc.process_flow(fwd)
-            enc.process_flow(bwd)
-            compute_fwdbwd_mask(fwd, bwd)
-
         stages = {
-            "input resize (cubic, f32)": cuda_ms(
-                lambda: resize2d(x.float(), (dh, dw), method="cubic")),
+            "input resize (cubic, f32)": cuda_ms(resize),
             "backbone (convs + 15 K4)": cuda_ms(
                 lambda: gm.backbone_forward(model.backbone, xin)),
             "transformer (6 K1 + 6 K2)": cuda_ms(
@@ -424,13 +451,70 @@ def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
             "propagation (1 K3)": cuda_ms(
                 lambda: gm.flow_propagation(model.feature_flow_attn, both,
                                             flow)),
-            "upsampler + convex x8": cuda_ms(upsample),
+            "upsampler + convex x8": cuda_ms(lambda: upsample(prop, both)),
             "HSV + consistency epilogue": cuda_ms(epilogue),
         }
         total = cuda_ms(lambda: infer(model, ds[:-1], ds[1:]))
-    stages["the rest of infer_pairs (pad, position, casts)"] = total - sum(
-        v for k, v in stages.items() if not k.startswith(("input", "HSV")))
-    return step, stages
+    return step, _rest_of_infer(stages, total)
+
+
+def flow_gmflow_refine_step(runtime: RuntimeConfig, frames: np.ndarray):
+    """-> (step, {stage: device ms on the window already on the card}): the
+    band's --num_scales 2 step over 7 bidirectional pairs with masks and
+    flows returned."""
+    from prisma_tpu_torch.models import gmflow as gm
+    from prisma_tpu_torch.ops.resize import resize2d
+
+    cfg = gm.refine_config()
+    model, infer, step, (x, ds, xin, B), (resize, upsample, epilogue) = \
+        _gmflow_setup(runtime, frames, cfg)
+    dtype = runtime.resolve_dtype()
+    (s0, s1), (_, r1), (_, p1) = cfg.scale_lists()
+    with torch.inference_mode():
+        lo, hi = (f.permute(0, 2, 3, 1)
+                  for f in gm.backbone_forward(model.backbone, xin))
+        f0, f1 = gm.add_position(lo[:B], lo[B:], s0)
+        t0, t1 = gm.transformer_forward(model.transformer, f0, f1, s0)
+        flow = gm.global_correlation_softmax(t0, t1, True).to(dtype)
+        both = torch.cat([t0, t1])
+        prop = gm.flow_propagation(model.feature_flow_attn, both, flow)
+        g0, g1 = torch.cat([hi[:B], hi[B:]]), torch.cat([hi[B:], hi[:B]])
+
+        def up_warp():
+            up = (resize2d(prop.float(), g0.shape[1:3], method="linear",
+                           align_corners=True) * 2.0).to(dtype)
+            return up, gm._flow_warp(g1, up)
+
+        up, w1 = up_warp()
+        h0, h1 = gm.add_position(g0, w1, s1)
+        u0, u1 = gm.transformer_forward(model.transformer, h0, h1, s1)
+        flow1 = up + gm.local_correlation_softmax(u0, u1, r1)
+        prop1 = gm.flow_propagation_local(model.feature_flow_attn, u0, flow1,
+                                          p1)
+        stages = {
+            "input resize (cubic, f32)": cuda_ms(resize),
+            "backbone, 2 scales (convs + 15 K4)": cuda_ms(
+                lambda: gm.backbone_forward(model.backbone, xin)),
+            "1/8 transformer (6 K1 + 6 K2)": cuda_ms(
+                lambda: gm.transformer_forward(model.transformer, f0, f1, s0)),
+            "1/8 global matching (2 K3)": cuda_ms(
+                lambda: gm.global_correlation_softmax(t0, t1, True)),
+            "1/8 propagation (1 K3)": cuda_ms(
+                lambda: gm.flow_propagation(model.feature_flow_attn, both,
+                                            flow)),
+            "flow upsample x2 + warp": cuda_ms(up_warp),
+            "1/4 transformer (6 K1 + 6 K2)": cuda_ms(
+                lambda: gm.transformer_forward(model.transformer, h0, h1, s1)),
+            "1/4 local matching (r=4)": cuda_ms(
+                lambda: gm.local_correlation_softmax(u0, u1, r1)),
+            "1/4 local propagation (r=1)": cuda_ms(
+                lambda: gm.flow_propagation_local(model.feature_flow_attn,
+                                                  u0, flow1, p1)),
+            "upsampler + convex x4": cuda_ms(lambda: upsample(prop1, u0)),
+            "HSV + consistency epilogue": cuda_ms(epilogue),
+        }
+        total = cuda_ms(lambda: infer(model, ds[:-1], ds[1:]))
+    return step, _rest_of_infer(stages, total)
 
 
 def flow_raft_step(runtime: RuntimeConfig, frames: np.ndarray):
@@ -623,6 +707,7 @@ STEPS = {"depth_anything": (depth_anything_step, "frames", BATCH),
          "depth_zoedepth": (depth_zoedepth_step, "frames", BATCH),
          "mask": (mask_step, "frames", BATCH),
          "flow_gmflow": (flow_gmflow_step, "pairs", BATCH - 1),
+         "flow_gmflow_refine": (flow_gmflow_refine_step, "pairs", BATCH - 1),
          "flow_raft": (flow_raft_step, "pairs", BATCH - 1)}
 
 

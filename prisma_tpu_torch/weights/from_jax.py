@@ -147,6 +147,8 @@ def gmflow_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
         if "down" in b:
             _conv(sd, k + "downsample.0", b["down"])
     _conv(sd, "backbone.conv2", bb["conv2"])
+    if "trident" in bb:  # gmflow_with_refine: the weight-shared trident conv
+        _conv(sd, "backbone.trident_conv", bb["trident"])
     for i, layer in enumerate(params_np["transformer"]["layers"]):
         for part, name in (("self", "self_attn"), ("cross", "cross_attn_ffn")):
             p = layer[part]

@@ -9,6 +9,7 @@ RuntimeConfig.models_dir):
   depth_anything_metric_depth_{indoor,outdoor}.pt
                                          ZoeDepth over the ViT-L core, under 'model'
   gmflow_sintel-0c07dcb3.pth             torch checkpoint, state_dict under 'model'
+  gmflow_with_refine_sintel-3ed1cf48.pth the same, for two scales (--num_scales 2)
   raft-sintel.pth                        torch state_dict, DataParallel `module.` keys
   solov2_r101_fpn_3x_coco*.pth           mmdet checkpoint, state_dict under 'state_dict'
   ZoeD_M12_N.pt                          ZoeD_N (BEiT-L core + bins head), under 'model'
@@ -132,15 +133,17 @@ def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
 
 def load_gmflow(runtime: RuntimeConfig,
                 cfg: gm.GMFlowConfig | None = None) -> gm.GMFlow:
-    """GMFlow (1-scale), f32 on the CPU: random from the seed, or the
-    reference checkpoint `gmflow_sintel-0c07dcb3.pth` (reference
-    flow_gmflow.py:35,60-63; the state_dict sits under 'model') loaded with
-    strict=True."""
+    """GMFlow, f32 on the CPU: random from the seed, or the reference
+    checkpoint loaded with strict=True: `gmflow_sintel-0c07dcb3.pth`
+    (reference flow_gmflow.py:35,60-63; the state_dict sits under 'model'),
+    or `gmflow_with_refine_sintel-3ed1cf48.pth` for a cfg with two scales."""
     cfg = cfg or gm.GMFlowConfig()
     if runtime.random_weights:
         gen = torch.Generator().manual_seed(RANDOM_SEED)
         return gm.init_params(gm.build(cfg), gen)
-    path = os.path.join(runtime.models_dir, "gmflow_sintel-0c07dcb3.pth")
+    name = ("gmflow_with_refine_sintel-3ed1cf48.pth" if cfg.num_scales > 1
+            else "gmflow_sintel-0c07dcb3.pth")
+    path = os.path.join(runtime.models_dir, name)
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"checkpoint {path} not found; place the gmflow checkpoint there "

@@ -1,11 +1,15 @@
-"""The port's GMFlow (1-scale) against the JAX package's, on the CPU.
+"""The port's GMFlow (1-scale and the 2-scale refinement) against the JAX
+package's, on the CPU.
 
 Both run the JAX package's random init (jax.random), carried to the port with
 `from_jax.gmflow_state_dict` and loaded with strict=True, in f32 on the same
 numpy-seeded images. The JAX side runs its CPU path: dense XLA window
 attention and the blockwise-scan global softmax; the port runs the kernels'
-plain versions. Also: the RAFT helpers GMFlow imports, the flow ops, the
-per-pair HSV encoding, and the weight round trip and checkpoint files.
+plain versions. The refinement is held to JAX's `refine_config(matching=
+"dense")` at precision HIGHEST, which runs the taps form of the local
+correlation (the oracle). Also: the RAFT helpers GMFlow imports, the flow
+ops, the per-pair HSV encoding, and the weight round trip and checkpoint
+files.
 """
 
 import functools
@@ -103,8 +107,169 @@ def test_inference_size_identity(models):
 
 
 def test_config_refuses_refinement():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gm.GMFlowConfig(num_scales=2)
+    """Two scales build (the refinement runs); what the model cannot run is
+    refused: a third scale, and per-scale lists of another length."""
+    cfg = gm.refine_config()
+    assert (cfg.num_scales, cfg.upsample_factor, cfg.padding_factor) == (2, 4, 32)
+    assert cfg.scale_lists() == jgm.refine_config().scale_lists() \
+        == ((2, 8), (-1, 4), (-1, 1))
+    assert gm.GMFlowConfig(attn_splits_list=(4,)).scale_lists()[0] == (4,)
+    model = gm.build(cfg)
+    assert model.backbone.layer3[0].stride == 1
+    assert model.upsampler[2].out_channels == 4 * 4 * 9
+    with pytest.raises(ValueError, match="num_scales"):
+        gm.GMFlowConfig(num_scales=3)
+    with pytest.raises(ValueError, match="one entry per scale"):
+        gm.refine_config(corr_radius_list=(4,))
+
+
+# ----------------------------------------------------- refinement (2 scales)
+
+# The refinement's local matching softmax is sharp under the JAX package's
+# random init (scores in the hundreds over 81 taps), and the warp reads
+# features that change by ~6 a pixel on noise images: a 5e-4 px last-bit
+# difference of the scale-0 flow (sums in another order) grows to 2.4e-2 px
+# at full-scale weights. Halving the weights, as the JAX package's own
+# refinement parity test does (tests/test_gmflow_parity.py), keeps the
+# network out of that regime: the flows then agree to ~3e-5 px, and
+# FLOW_ATOL holds them.
+REFINE_WEIGHT_SCALE = 0.5
+
+
+BACKBONE_X = np.random.default_rng(12).normal(size=(2, 64, 96, 3)).astype(
+    np.float32)
+
+
+@pytest.fixture(scope="module")
+def refine():
+    """(JAX params, port model, padded 64x96 images, pads, JAX bidir flow,
+    JAX 2-scale backbone features of BACKBONE_X): one jitted JAX function
+    (the forward with dense matching at precision HIGHEST, the taps form, on
+    two 60x90 pairs padded to 64x96 as infer_pairs pads them; and the
+    backbone), so the file compiles the refinement once."""
+    params = jax.tree.map(
+        lambda x: np.asarray(x) * REFINE_WEIGHT_SCALE,
+        jax.jit(lambda k: jgm.init_params(k, jgm.refine_config()))(
+            jax.random.key(3)))
+    model = gm.build(gm.refine_config())
+    model.load_state_dict(gmflow_state_dict(params), strict=True)
+    a, b = _images(11, (2, 60, 90, 3))
+    (pa, pads), (pb, _) = (jraft.pad_to_multiple(jnp.asarray(x), 32)
+                           for x in (a, b))
+    cfg = jgm.refine_config(matching="dense")
+    flow, feats = jax.jit(lambda p, x, y, z: (
+        jgm.forward(p, x, y, cfg, pred_bidir=True, precision="highest"),
+        jgm.backbone_forward(p["backbone"], z, "highest", num_scales=2)))(
+        params, pa, pb, jnp.asarray(BACKBONE_X))
+    return params, model, (a, b), (np.array(pa), np.array(pb)), pads, \
+        np.asarray(flow), feats
+
+
+def test_refine_backbone_matches_jax(refine):
+    """Two scales: layer3 at stride 1, the shared trident conv at strides 2
+    and 1 -> [1/8, 1/4] features."""
+    model, (jlo, jhi) = refine[1], refine[6]
+    x = BACKBONE_X
+    with torch.inference_mode():
+        lo, hi = gm.backbone_forward(model.backbone, torch.from_numpy(
+            x.transpose(0, 3, 1, 2).copy()))
+    assert lo.shape == (2, 128, 8, 12) and hi.shape == (2, 128, 16, 24)
+    for ours, theirs in ((lo, jlo), (hi, jhi)):
+        np.testing.assert_allclose(ours.numpy().transpose(0, 2, 3, 1),
+                                   np.asarray(theirs), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flow_warp_matches_jax(dtype):
+    """Flows up to +-6 px on a 12x20 map: corners off every edge. f32 to
+    sums in another order; bf16 (f32 blend, one cast on both sides) to one
+    bf16 ulp of the value."""
+    rng = np.random.default_rng(13)
+    feat = rng.normal(size=(2, 12, 20, 16)).astype(np.float32)
+    flow = rng.uniform(-6, 6, size=(2, 12, 20, 2)).astype(np.float32)
+    jd = getattr(jnp, dtype)
+    theirs = np.asarray(jax.jit(jgm._flow_warp)(
+        jnp.asarray(feat, jd), jnp.asarray(flow, jd)).astype(jnp.float32))
+    td = getattr(torch, dtype)
+    ours = gm._flow_warp(torch.from_numpy(feat).to(td),
+                         torch.from_numpy(flow).to(td))
+    assert ours.dtype == td
+    ours = ours.float().numpy()
+    assert (ours == 0).any()  # some samples fall wholly off the map
+    if dtype == "float32":
+        np.testing.assert_allclose(ours, theirs, atol=1e-6)
+    else:
+        np.testing.assert_allclose(ours, theirs, rtol=2 ** -8, atol=1e-6)
+
+
+def test_local_correlation_softmax_matches_jax_taps():
+    """Radius 4 (81 taps, dy slow, dx fast) on a 12x20 map, so that most
+    pixels have taps off the image (masked to -1e9); f32 against the taps
+    form at HIGHEST."""
+    rng = np.random.default_rng(14)
+    f0, f1 = (rng.normal(size=(2, 12, 20, 128)).astype(np.float32)
+              for _ in range(2))
+    theirs = np.asarray(jax.jit(functools.partial(
+        jgm.local_correlation_softmax, radius=4, precision="highest"))(
+        jnp.asarray(f0), jnp.asarray(f1)))
+    ours = gm.local_correlation_softmax(torch.from_numpy(f0),
+                                        torch.from_numpy(f1), 4)
+    assert ours.shape == (2, 12, 20, 2) and ours.dtype == torch.float32
+    assert float(ours.abs().max()) > 1.0  # the offsets are taken
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=1e-5)
+
+
+def test_flow_propagation_local_matches_jax(refine):
+    """Radius 1: keys from the raw feature, border taps zero-padded and not
+    masked."""
+    params, model = refine[:2]
+    rng = np.random.default_rng(15)
+    feat = rng.normal(size=(2, 10, 14, 128)).astype(np.float32)
+    flow = rng.normal(0, 4, size=(2, 10, 14, 2)).astype(np.float32)
+    theirs = np.asarray(jax.jit(functools.partial(
+        jgm.flow_propagation_local, radius=1, precision="highest"))(
+        params["flow_attn"], jnp.asarray(feat), jnp.asarray(flow)))
+    with torch.inference_mode():
+        ours = gm.flow_propagation_local(model.feature_flow_attn,
+                                         torch.from_numpy(feat),
+                                         torch.from_numpy(flow), 1)
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=1e-5)
+
+
+def test_refine_forward_matches_jax(refine):
+    """forward at 64x96 with the full 128 channels and 6 layers, two scales,
+    bidir: [fwd; bwd] flows of 2 pairs at x4 convex upsampling."""
+    _, model, _, (pa, pb), _, theirs, _ = refine
+    with torch.inference_mode():
+        ours = gm.forward(model, torch.from_numpy(pa), torch.from_numpy(pb))
+    assert ours.shape == (4, 64, 96, 2) and ours.dtype == torch.float32
+    assert np.abs(theirs).max() > 1.0
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=FLOW_ATOL)
+
+
+def test_refine_infer_pairs_pads_to_32_and_matches_jax(refine):
+    """infer_pairs at 60x90: centred replicate padding to 64x96 (/32) and
+    back, as JAX's infer_pairs (pad, forward, unpad)."""
+    _, model, (a, b), _, pads, theirs, _ = refine
+    assert tuple(pads) == (2, 2, 3, 3)
+    with torch.inference_mode():
+        f, bw = gm.infer_pairs(model, torch.from_numpy(a), torch.from_numpy(b))
+    jf = np.asarray(jraft.unpad(theirs, pads))
+    assert f.shape == bw.shape == (2, 60, 90, 2)
+    np.testing.assert_allclose(f.numpy(), jf[:2], atol=FLOW_ATOL)
+    np.testing.assert_allclose(bw.numpy(), jf[2:], atol=FLOW_ATOL)
+
+
+def test_refine_one_direction_is_the_bidir_forward_half(refine):
+    """pred_bidir=False runs the forward rows alone: every op is per pair,
+    so they equal the first half of the bidirectional batch."""
+    _, model, _, (pa, pb), _, _, _ = refine
+    with torch.inference_mode():
+        both = gm.forward(model, torch.from_numpy(pa), torch.from_numpy(pb))
+        one = gm.forward(model, torch.from_numpy(pa), torch.from_numpy(pb),
+                         pred_bidir=False)
+    assert one.shape == (2, 64, 96, 2)
+    torch.testing.assert_close(one, both[:2], rtol=0, atol=1e-4)
 
 
 # ------------------------------------------------------------- RAFT helpers
@@ -231,6 +396,45 @@ def test_checkpoint_file_layouts_load(tmp_path, models, layout):
         assert torch.equal(v, sd[k]), k
 
 
+def test_refine_state_dict_round_trip_is_exact(refine):
+    """The refine checkpoint's keys: backbone.trident_conv.weight (no bias)
+    and a 144-channel mask head; convert_gmflow and from_jax invert each
+    other on them."""
+    _, model = refine[:2]
+    sd = model.state_dict()
+    assert sd["backbone.trident_conv.weight"].shape == (128, 128, 3, 3)
+    assert "backbone.trident_conv.bias" not in sd
+    assert sd["upsampler.2.weight"].shape[0] == 144
+    params = convert_gmflow({k: v.numpy() for k, v in sd.items()})
+    assert "trident" in params["backbone"]
+    back = gmflow_state_dict(jax.tree.map(np.asarray, params))
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+    with pytest.raises(RuntimeError, match="trident_conv"):
+        gm.build().load_state_dict(back, strict=True)
+
+
+@pytest.mark.parametrize("layout", ["model", "module", "raw"])
+def test_refine_checkpoint_file_layouts_load(tmp_path, refine, layout):
+    """gmflow_with_refine_sintel-3ed1cf48.pth, in the same three layouts,
+    loads strictly into the two-scale model; the one-scale file beside it
+    is not read."""
+    _, model = refine[:2]
+    sd = model.state_dict()
+    payload = {"model": {"model": sd, "epoch": 100},
+               "module": {"model": {"module." + k: v for k, v in sd.items()}},
+               "raw": sd}[layout]
+    torch.save(payload, tmp_path / "gmflow_with_refine_sintel-3ed1cf48.pth")
+    torch.save({"model": gm.build().state_dict()},
+               tmp_path / "gmflow_sintel-0c07dcb3.pth")
+    runtime = RuntimeConfig(models_dir=str(tmp_path), device="cpu")
+    loaded = store.load_gmflow(runtime, gm.refine_config())
+    assert loaded.cfg.num_scales == 2
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+
+
 def test_random_init_is_seeded_and_missing_file_raises(tmp_path):
     runtime = RuntimeConfig(random_weights=True, device="cpu")
     a = store.load_gmflow(runtime).state_dict()
@@ -240,3 +444,8 @@ def test_random_init_is_seeded_and_missing_file_raises(tmp_path):
     assert float(w.std()) == pytest.approx(128 ** -0.5, rel=0.05)
     with pytest.raises(FileNotFoundError):
         store.load_gmflow(RuntimeConfig(models_dir=str(tmp_path), device="cpu"))
+    refine = store.load_gmflow(runtime, gm.refine_config()).state_dict()
+    assert "backbone.trident_conv.weight" in refine
+    with pytest.raises(FileNotFoundError, match="with_refine"):
+        store.load_gmflow(RuntimeConfig(models_dir=str(tmp_path), device="cpu"),
+                          gm.refine_config())

@@ -5,7 +5,9 @@ Both run the JAX package's random init (jax.random), carried to the port with
 numpy-seeded inputs, at the full widths (256-channel fnet, 128 + 128 cnet,
 the 324-channel four-level lookup). The JAX side is jitted and runs its
 `corr_impl="volume"` lookup; the port runs the kernels' plain versions (K4
-for fnet's norms, K5 for the lookup). Also: the weight round trip through
+for fnet's norms, K5 for the lookup). The O(HW)-memory `corr_impl="fused"`
+lookup is held to JAX's and to the port's volume path. Also: the weight
+round trip through
 `convert_raft`, strict loads of a synthetic `raft-sintel.pth` with
 DataParallel prefixes, and the seeded random init.
 """
@@ -100,6 +102,72 @@ def test_corr_lookup_matches_jax():
                             torch.from_numpy(coords), 4)
     assert ours.shape == (B, H, W, 324)
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=2e-5)
+
+
+def test_fmap_pyramid_matches_jax_on_ragged_sizes():
+    """The fused lookup's pyramid: 41x57 fmaps pool to 20x28, 10x14 and 5x7,
+    each odd row and column cropped first; a 6x9 map pools to 0x1 at level
+    3 (an empty level)."""
+    rng = np.random.default_rng(9)
+    for h, w in ((41, 57), (6, 9)):
+        f2 = rng.normal(size=(2, h, w, 16)).astype(np.float32)
+        theirs = jraft.build_fmap_pyramid(jnp.asarray(f2), 4)
+        ours = raft.build_fmap_pyramid(torch.from_numpy(f2), 4)
+        assert [tuple(v.shape) for v in ours] == [v.shape for v in theirs]
+        for a, b in zip(ours, theirs):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+@pytest.mark.parametrize("hw", [(12, 20), (6, 9)])
+def test_corr_lookup_fused_matches_jax_and_the_volume(hw):
+    """The fused lookup at C = 256 (the folded 1/sqrt(C) exact): against
+    JAX's `corr_lookup_fused` and against the port's volume path (the
+    pyramid of volumes and K5's plain version), windows with x on the slow
+    axis, centres off every edge; 6x9 has an empty level 3 (zeros on all
+    three sides)."""
+    rng = np.random.default_rng(10)
+    H, W = hw
+    f1, f2 = (rng.normal(size=(2, H, W, 256)).astype(np.float32)
+              for _ in range(2))
+    coords = rng.uniform(-6, W + 6, (2, H, W, 2)).astype(np.float32)
+    theirs = np.asarray(jax.jit(functools.partial(
+        jraft.corr_lookup_fused, radius=4, precision="highest"))(
+        jnp.asarray(f1), jraft.build_fmap_pyramid(jnp.asarray(f2), 4),
+        jnp.asarray(coords)))
+    ours = raft.corr_lookup_fused(
+        torch.from_numpy(f1), raft.build_fmap_pyramid(torch.from_numpy(f2), 4),
+        torch.from_numpy(coords), 4)
+    assert ours.shape == (2, H, W, 324) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=2e-5)
+    volume = raft.corr_lookup(raft.build_corr_pyramid(_nchw(f1), _nchw(f2), 4),
+                              torch.from_numpy(coords), 4)
+    np.testing.assert_allclose(ours.numpy(), volume.numpy(), atol=2e-5)
+    assert float(np.abs(theirs[..., :81]).max()) > 1.0
+
+
+def test_forward_fused_matches_jax_and_the_volume_path(models):
+    """forward with corr_impl="fused" at 64x96, 4 iterations: against JAX's
+    fused forward (reference GRU form) and the port's volume path, within
+    f32 rounding (FLOW_ATOL). Every other JAX corr_impl name runs the volume
+    path; an unknown name raises."""
+    params, model = models
+    a, b = _images(3, (2, 64, 96, 3))
+    jl, ju = jax.jit(functools.partial(jraft.forward, iters=4,
+                                       gru_impl="reference",
+                                       corr_impl="fused"))(
+        params, jnp.asarray(a), jnp.asarray(b))
+    with torch.inference_mode():
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        low, up = raft.forward(model, ta, tb, iters=4, corr_impl="fused")
+        vlow, vup = raft.forward(model, ta, tb, iters=4)
+        gk = raft.forward(model, ta, tb, iters=4, corr_impl="volume_gk")[1]
+    assert float(np.abs(np.asarray(ju)).max()) > 1.0
+    np.testing.assert_allclose(low.numpy(), np.asarray(jl), atol=FLOW_ATOL)
+    np.testing.assert_allclose(up.numpy(), np.asarray(ju), atol=FLOW_ATOL)
+    np.testing.assert_allclose(up.numpy(), vup.numpy(), atol=FLOW_ATOL)
+    assert torch.equal(gk, vup)
+    with pytest.raises(ValueError, match="corr_impl"):
+        raft.forward(model, ta, tb, iters=1, corr_impl="alt_cuda_corr")
 
 
 @pytest.mark.parametrize("gru_impl,atol", [("reference", FLOW_ATOL),
