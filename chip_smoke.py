@@ -16,11 +16,15 @@ family: PatchFusion on a 1080p frame at p49, ZoeD_N's video step, and an
 image's default run (mask, PatchFusion at r128); then MiDaS (DPT_Large
 and v2.1 video steps at batch 8) and Marigold (one 1080p frame, 10 steps x
 10 members at 768); then GMFlow's refinement (--num_scales 2) and RAFT's
-fused lookup (--corr_impl fused) on the flow frames. It holds every kernel
-against its plain PyTorch version. The folder writers (decode, x264) are
-not driven: the card's machine is not known to have libav or colmap. Each phase prints a line; a
-failed phase ends the run with a non-zero exit. Without a CUDA device it
-exits non-zero at once.
+fused lookup (--corr_impl fused) on the flow frames; then the ViT-L step
+under the depth loop's device trace (PRISMA_TPU_TRACE), the depth and flow
+steps split over replicas (parallel/mesh.py) and the host tools (concat,
+the viewer's helpers, the io helpers). It holds every kernel against its
+plain PyTorch version. The band folders' loops (decode, x264, colmap) are
+not driven here; phase 34 drives the codec where it loads and says so
+where its libav libraries are missing. Each phase prints a line; a failed
+phase ends the run with a non-zero exit. Without a CUDA device it exits
+non-zero at once.
 
   1. env: torch and CUDA versions, the card's name and power limit
   2. build: every kernel of prisma_tpu_torch/csrc/, one nvcc each, together;
@@ -149,6 +153,31 @@ exits non-zero at once.
      path (2 pairs at 128x192, 4 iterations: 15 K4, no K5 against 15 K4 +
      4 K5); one full-width step at 810x1440, 20 iterations, with exactly 15
      K4 and 0 K5: pairs/s and peak memory beside the volume path's
+ 32. trace: the ViT-L step (bf16, 8 uint8 1080p frames) twice between
+     StageProfiler.start_device_trace and stop_device_trace with
+     PRISMA_TPU_TRACE set: the written Chrome trace must name K1
+     (flash_fwd_*) exactly 24 x 2 times and the launch counts agree; the
+     traced steps' heat, min, max and depth equal the untraced steps' bit
+     for bit; host ms a step with and without the trace
+ 33. data-parallel: the depth and GMFlow steps with devices= over every
+     visible card, or two replicas on the one card where only one is
+     visible (it says which), against one replica: exactly 24 K1 a replica
+     (depth) and 6 K1, 6 K2, 3 K3, 15 K4 a replica with pairs (flow); the
+     bf16 depth and flows within 2x the null distance of one replica with
+     the plain attention (P rounded to bf16) for K1/K2, the f32 depth and
+     flows (TF32 off, the band's weights) within 1e-4 of their scale, and
+     the f32 split flow within that of the replicas' frames run through
+     the whole step one after the other (the witness that a difference
+     between split and whole comes from the batch sizes); host ms a step
+     split and whole. `python3 chip_smoke.py --data-parallel` runs this
+     phase alone, over two cards and over every visible card where there
+     are several
+ 34. tools: concat_image, copy_folder, to_float_rgb and decode_depth_band
+     on a synthetic folder; concat_video and a make_video /
+     extract_frames_from_video round trip where the native codec loads. A
+     machine without the codec's libav libraries is named with the
+     loader's error, and the kernels line says "host_tools_codec": "not
+     run: libav missing"; any other load error fails the phase
 
 The line before the last is one JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -203,8 +232,17 @@ REFINE_WIN_SHAPE = (1792, 1170, 128)
 REFINE_MATCH_SHAPE = (7, 18720, 128)  # 1/8 global matching, 104x180 tokens
 REFINE_NORM_SHAPE = (14, 64, 416, 720)  # conv1's instance norm at 832x1440
 REFINE_STEP = {"K1": 12, "K2": 12, "K3": 3, "K4": 15}
-REFINE_WEIGHT_SCALE = 0.5  # the f32 check's weights (tests/test_torch_gmflow.py)
+REFINE_WEIGHT_SCALE = 0.5  # the f32 flow checks' weights (tests/test_torch_gmflow.py)
 ATTN_CHUNK = 256  # windows a chunk of the plain attention: 4 x 64 at ns = 8
+TRACE_STEPS = 2  # traced ViT-L steps (phase 32)
+K1_SYMBOL = re.compile(r"\bflash_fwd_\w+")  # K1's kernels in a trace
+# the loader's error when the codec's libav libraries are not installed
+LIBAV_MISSING = re.compile(r"\blib(av\w+|swscale|swresample)\.so[.\d]*: "
+                           r"cannot open shared object file")
+TOOLS_HW, TOOLS_FRAMES = (64, 96), 6  # phase 34's synthetic clip
+# x264 at crf 15 in yuv420p loses ~1.4 levels in mean on these RGB ramps and
+# ~2 on the saturated heatmap a generation (the chroma subsampling)
+X264_LEVELS = 3.0
 PEAK_BF16, PEAK_F32, HBM_BYTES_S, SFU_PER_CLOCK_SM = 989e12, 67e12, 3.35e12, 16
 # K3's query rows per CTA and keys per tile (csrc/flash_attention_streamed.cu)
 K3_TILE_Q, K3_TILE_K = 256, 128
@@ -390,6 +428,89 @@ def sass_counts(lib_path):
     return counts
 
 
+def launch_counters():
+    """The kernel wrappers' launch counters -> (counters, per_path,
+    zero_counts, read_counts)."""
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+    from prisma_tpu_torch.ops.cuda import instance_norm as inorm
+    from prisma_tpu_torch.ops.cuda import probe_gather as pg
+    from prisma_tpu_torch.ops.cuda import raft_lookup as rl
+    counters = {"K1": (fa.flash_attention, "launches"),
+                "K2": (fa.flash_attention, "region_launches"),
+                "K3": (fa.flash_attention_streamed, "launches"),
+                "K4": (inorm.instance_norm_relu, "launches"),
+                "K5": (rl.window_lookup, "launches"),
+                "K6a": (pg.lane_gather, "launches"),
+                "K6b": (pg.minor_transpose, "launches")}
+
+    def per_path(**n):
+        """Expected launches: n for the named kernels, 0 for the others."""
+        return {key: n.get(key, 0) for key in counters}
+
+    def zero_counts():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read_counts():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    return counters, per_path, zero_counts, read_counts
+
+
+def card_info():
+    """("name, power limit" of the first card as nvidia-smi gives them, its
+    max SM clock in Hz)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                          "clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    fields = [f.strip() for f in smi.stdout.strip().splitlines()[0].split(",")]
+    return f"{fields[0]}, {fields[1]}", float(fields[2].split()[0]) * 1e6
+
+
+def data_parallel_main():
+    """`python3 chip_smoke.py --data-parallel`: phase 33 alone, over two
+    cards and over every visible card (`parallel.mesh.data_devices`) where
+    more than one is visible, else over two replicas on the one card.
+    Prints its lines and no result line."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this check runs only on the card")
+    sys.path.insert(0, HERE)
+    from prisma_tpu_torch.ops.cuda import build
+    from prisma_tpu_torch.parallel import mesh
+    from prisma_tpu_torch.runtime.config import RuntimeConfig
+
+    _, per_path, zero_counts, read_counts = launch_counters()
+    card, _ = card_info()
+    print(card)
+    n_cards = torch.cuda.device_count()
+    say("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{n_cards} device(s): " + "; ".join(
+            torch.cuda.get_device_name(i) for i in range(n_cards)))
+    t0 = time.perf_counter()
+    for name in build.build_all():
+        build.load(name)
+    say("build", f"in {time.perf_counter() - t0:.2f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runtime = RuntimeConfig(random_weights=True, compute_dtype="bfloat16",
+                            device="cuda")
+    frames = np.random.default_rng(0).integers(
+        0, 256, size=(BATCH, *FRAME_HW, 3), dtype=np.uint8)
+    if n_cards > 1:
+        every = mesh.data_devices(runtime.device)
+        configs = [(every[:2], "2 cards, one replica each", "_2cards")]
+        if len(every) > 2 and BATCH % len(every) == 0:
+            configs.append((every, f"every visible card ({len(every)}, "
+                            f"mesh.data_devices), one replica each",
+                            f"_{len(every)}cards"))
+    else:
+        configs = [(*default_devices(), "")]
+    for devices, where, tag in configs:
+        data_parallel_paths(runtime, frames, card, zero_counts, read_counts,
+                            per_path, devices, where, tag)
+    say("data-parallel", f"every configuration passed; on {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this check runs only on the card")
@@ -415,32 +536,10 @@ def main():
     from prisma_tpu_torch.weights import store
     import torch.nn.functional as F
     plain_p_bf16 = functools.partial(fa.flash_attention_ref, round_p=True)
-    counters = {"K1": (fa.flash_attention, "launches"),
-                "K2": (fa.flash_attention, "region_launches"),
-                "K3": (fa.flash_attention_streamed, "launches"),
-                "K4": (inorm.instance_norm_relu, "launches"),
-                "K5": (rl.window_lookup, "launches"),
-                "K6a": (pg.lane_gather, "launches"),
-                "K6b": (pg.minor_transpose, "launches")}
-
-    def per_path(**n):
-        """Expected launches: n for the named kernels, 0 for the others."""
-        return {key: n.get(key, 0) for key in counters}
-
-    def zero_counts():
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-
-    def read_counts():
-        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    counters, per_path, zero_counts, read_counts = launch_counters()
 
     # 1. environment
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
-                          "clocks.max.sm", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    fields = [f.strip() for f in smi.stdout.strip().splitlines()[0].split(",")]
-    card = f"{fields[0]}, {fields[1]}"
-    max_sm_hz = float(fields[2].split()[0]) * 1e6
+    card, max_sm_hz = card_info()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(card)
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1415,12 +1514,15 @@ def main():
                                       read_counts, per_path,
                                       dict(k1=k1, k2=k2, k3=k3, k4=k4),
                                       raft_volume)
+    tools_counts = port_tools_paths(runtime, frames, card, zero_counts,
+                                    read_counts, per_path)
+    codec = host_tools_phase()
 
     runs = {"depth_anything_vitl": vit_counts, "flow_gmflow": flow_counts,
             "flow_raft": raft_counts, "probe": probe_counts,
             "depth_anything_metric": metric_counts, "mask": mask_counts,
             "fused_3band": fused_counts, **beit_counts, **depth_counts,
-            **refine_counts}
+            **refine_counts, **tools_counts}
     launches = {key: sum(c[key] for c in runs.values()) for key in counters}
     by_path = {key: {path: c[key] for path, c in runs.items()}
                for key in counters}
@@ -1451,7 +1553,8 @@ def main():
         "design": DESIGNS[key], "registers": compiled(key, regs),
         **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2", "K3") else {}),
         **({"sass": k5_sass} if key == "K5" else {})}
-        for name, key, src, replaces, row in rows]}))
+        for name, key, src, replaces, row in rows],
+        "host_tools_codec": codec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1467,12 +1570,18 @@ def check_depth(phase, what, depth):
         fail(f"{what}: not finite or outside the configured depth range")
 
 
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def synced(fn):
-    """(fn(), host seconds) with the card synchronised on both sides."""
-    torch.cuda.synchronize()
+    """(fn(), host seconds) with every visible card synchronised on both
+    sides."""
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -2149,6 +2258,405 @@ def flow_refine_paths(runtime, frames, card, rng, zero_counts, read_counts,
     return counts
 
 
+def trace_phase(runtime, frames, card, zero_counts, read_counts, per_path):
+    """Phase 32: the depth loop's device trace around the ViT-L step.
+    -> {path: launch counts}."""
+    import tempfile
+
+    from prisma_tpu_torch.bands import depth_anything_band, depth_base
+    from prisma_tpu_torch.runtime.profiling import StageProfiler
+
+    def equal(a, b):
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+    # 32. the ViT-L step between start_device_trace and stop_device_trace
+    # (PRISMA_TPU_TRACE), against the same step untraced
+    model, infer, flip = depth_anything_band.build_infer(runtime, encoder="vitl")
+    step = depth_base.make_step(model, infer, flip, need_depth=True)
+    step(frames)  # warm-up
+    untraced, untraced_s = synced(lambda: [step(frames)
+                                           for _ in range(TRACE_STEPS)])
+    trace_dir = tempfile.mkdtemp(prefix="prisma_tpu_trace_")
+    os.environ["PRISMA_TPU_TRACE"] = trace_dir
+    try:
+        prof = StageProfiler()
+    finally:
+        del os.environ["PRISMA_TPU_TRACE"]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.start_device_trace()
+    traced = [step(frames) for _ in range(TRACE_STEPS)]
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    path = prof.stop_device_trace()
+    export_s = time.perf_counter() - t0 - traced_s
+    counts = {"depth_anything_traced": read_counts()}
+    if path is None:
+        fail("trace: stop_device_trace wrote no trace under PRISMA_TPU_TRACE")
+    trace_mb = os.path.getsize(path) / 2 ** 20
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(trace_dir)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if K1_SYMBOL.search(e.get("name", ""))]
+    expect = 24 * TRACE_STEPS
+    same = all(equal(a, b) for a, b in zip(traced, untraced))
+    ok = (len(k1) == expect and counts["depth_anything_traced"]
+          == per_path(K1=expect) and same)
+    say("trace", f"ViT-L step, {TRACE_STEPS} steps of {BATCH} uint8 "
+        f"{FRAME_HW[0]}x{FRAME_HW[1]} frames between start_device_trace and "
+        f"stop_device_trace (PRISMA_TPU_TRACE, torch.profiler CPU + CUDA): "
+        f"a Chrome trace of {trace_mb:.1f} MiB, {len(events)} events, "
+        f"{len(kernels)} kernels ({sum(e['dur'] for e in kernels) / 1e3:.2f} "
+        f"ms of device time), {len(k1)} named flash_fwd_* (K1: "
+        f"{sum(e['dur'] for e in k1) / 1e3:.2f} ms; {expect} expected); "
+        f"launches {counts['depth_anything_traced']}; heat, min, max and "
+        f"depth {'equal' if same else 'NOT equal'} bit for bit to the "
+        f"untraced steps' {'ok' if ok else 'FAIL'}")
+    say("trace", f"host clock: {untraced_s / TRACE_STEPS * 1e3:.1f} ms a step "
+        f"untraced, {traced_s / TRACE_STEPS * 1e3:.1f} ms traced (the "
+        f"profiler's start included), then {export_s:.2f} s to stop and "
+        f"write the trace; on {card}")
+    if not ok:
+        fail("the traced depth loop did not record its K1 launches or "
+             "changed the step's outputs")
+    return counts
+
+
+def default_devices():
+    """Phase 33's devices: every visible card (as many as divide the batch),
+    or two replicas on the one card -> (devices, how to name them)."""
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        n = max(d for d in (8, 4, 2) if d <= n_cards and BATCH % d == 0)
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} cards, one replica each")
+    return ([torch.device("cuda", 0)] * 2,
+            "two replicas on the one card: only one card is visible, so no "
+            "split over cards ran")
+
+
+def data_parallel_paths(runtime, frames, card, zero_counts, read_counts,
+                        per_path, devices, where, tag=""):
+    """Phase 33: the data-parallel depth and flow steps (parallel/mesh.py)
+    over `devices` against one replica on the first card.
+    -> {path + tag: launch counts}."""
+    from prisma_tpu_torch.bands import depth_anything_band, depth_base
+    from prisma_tpu_torch.bands import flow_base, flow_gmflow_band
+    from prisma_tpu_torch.models import gmflow as gm
+    from prisma_tpu_torch.ops import nn as pnn
+    from prisma_tpu_torch.ops.cuda import flash_attention as fa
+    from prisma_tpu_torch.parallel import mesh
+    from prisma_tpu_torch.runtime.config import RuntimeConfig
+
+    plain_p_bf16 = functools.partial(fa.flash_attention_ref, round_p=True)
+    counts = {}
+    n = len(devices)
+    say("data-parallel", f"devices {[str(d) for d in devices]}: {where}")
+
+    def timed(step):
+        step(frames)  # warm-up: the replicas are made
+        _, s = synced(lambda: [step(frames) for _ in range(TIMED_STEPS)])
+        return s / TIMED_STEPS * 1e3
+
+    def timed_one(step, x):
+        step(x)  # warm-up
+        _, s = synced(lambda: [step(x) for _ in range(TIMED_STEPS)])
+        return s / TIMED_STEPS * 1e3
+
+    # the depth step, bf16: split against whole; the null distance is the
+    # whole step's with the plain attention (P rounded to bf16) for K1
+    model, infer, flip = depth_anything_band.build_infer(runtime, encoder="vitl")
+    step = depth_base.make_step(model, infer, flip, need_depth=True)
+    split = depth_base.make_step(model, infer, flip, need_depth=True,
+                                 devices=devices)
+    whole_ms, split_ms = timed(step), timed(split)
+    whole = step(frames)
+    zero_counts()
+    out = split(frames)
+    counts["depth_data_parallel" + tag] = c = read_counts()
+    if c != per_path(K1=24 * n):
+        fail(f"data-parallel depth launches {c}, expected 24 K1 for each of "
+             f"{n} replicas")
+    pnn.flash_attention = plain_p_bf16
+    try:
+        null = step(frames)
+    finally:
+        pnn.flash_attention = fa.flash_attention
+    ref = torch.from_numpy(whole["depth"]).cuda()
+    null_check("data-parallel", "depth (bf16)",
+               torch.from_numpy(out["depth"]).cuda(), ref,
+               torch.from_numpy(null["depth"]).cuda(),
+               float(ref.max() - ref.min()),
+               null_label="one replica with the plain attention for K1",
+               plain_label="on one replica", got_label="split")
+    say("data-parallel", f"depth step over {n} replicas: launches {c} (24 K1 "
+        f"a replica) ok; {split_ms:.1f} ms a batch-8 step split against "
+        f"{whole_ms:.1f} ms on one replica (host clock, mean of "
+        f"{TIMED_STEPS}); on {card}")
+    # where the split's time goes: each replica's share of the batch run
+    # alone on its device, one after the other, and the host time the infer
+    # takes to queue a share's work
+    alone = [timed_one(depth_base.make_step(m, infer, flip, need_depth=True),
+                       ch) for m, ch in zip(mesh.replicate(model, devices),
+                                            np.split(frames, n))]
+    say("data-parallel", f"depth step's replicas alone on their devices "
+        f"(host clock, mean of {TIMED_STEPS}): "
+        f"{', '.join(f'{t:.1f}' for t in alone)} ms (sum {sum(alone):.1f})")
+
+    def host_ms(x):
+        """Host ms for infer to return, the card's work left queued."""
+        with torch.inference_mode():
+            infer(model, x)
+            sync_all()
+            t0 = time.perf_counter()
+            infer(model, x)
+            t = time.perf_counter() - t0
+            sync_all()
+        return t * 1e3
+
+    x = torch.from_numpy(frames).cuda()
+    say("data-parallel", f"the ViT-L infer's host time with no sync: "
+        f"{host_ms(x):.1f} ms at batch {BATCH}, {host_ms(x[:BATCH // n]):.1f}"
+        f" ms at batch {BATCH // n} (each replica's share)")
+    del x
+    del model, step, split, null, out, whole, ref
+    torch.cuda.empty_cache()
+
+    # the depth step in f32 (K1's f32 kernel): split within 1e-4 of the scale
+    rt32 = RuntimeConfig(random_weights=True, compute_dtype="float32",
+                         device="cuda")
+    model, infer, flip = depth_anything_band.build_infer(rt32, encoder="vitl")
+    whole = depth_base.make_step(model, infer, flip, need_depth=True)(frames)
+    zero_counts()
+    out = depth_base.make_step(model, infer, flip, need_depth=True,
+                               devices=devices)(frames)
+    f32_counts = read_counts()
+    err = float(np.abs(out["depth"] - whole["depth"]).max())
+    tol = 1e-4 * float(np.abs(whole["depth"]).max())
+    ok = (f32_counts == per_path(K1=24 * n) and err <= tol
+          and np.isfinite(out["depth"]).all())
+    say("data-parallel", f"depth step in f32 over {n} replicas: max |split - "
+        f"whole| {err:.3e}, tol {tol:.3e} (1e-4 of the depth scale); launches "
+        f"{f32_counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the f32 data-parallel depth step disagrees with one replica")
+    del model, out, whole
+    torch.cuda.empty_cache()
+
+    # the GMFlow step: the window's frames in runs a replica, each run with
+    # its neighbour's first frame
+    k = BATCH // n
+    runs = [frames[i * k:(i + 1) * k + 1] for i in range(n)]
+    runs = [r for r in runs if len(r) > 1]
+    per_step = {"K1": 6, "K2": 6, "K3": 3, "K4": 15}
+    lazy_model, infer = flow_gmflow_band.build_pairs(runtime)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        model = lazy_model().to(device="cuda", dtype=dtype)
+        whole_step = flow_base.make_flow_step(model, infer, FLOW_HW,
+                                              need_masks=True, need_flow=True)
+        split = flow_base.make_flow_step(model, infer, FLOW_HW,
+                                         need_masks=True, need_flow=True,
+                                         devices=devices)
+        if dtype == torch.bfloat16:
+            whole_ms, split_ms = timed(whole_step), timed(split)
+        whole = whole_step(frames)
+        zero_counts()
+        out = split(frames)
+        c = read_counts()
+        counts[f"flow_data_parallel_{name}{tag}"] = c
+        check_flow_outputs([out])
+        if c != per_path(**{key: v * len(runs) for key, v in per_step.items()}):
+            fail(f"data-parallel flow launches {c}, expected {per_step} for "
+                 f"each of {len(runs)} replicas with pairs")
+        if dtype == torch.bfloat16:
+            gm.flash_attention = plain_p_bf16
+            try:
+                null = whole_step(frames)
+            finally:
+                gm.flash_attention = fa.flash_attention
+            # forward and backward apart: torch.quantile takes at most 2^24
+            # values
+            for key in ("fwd", "bwd"):
+                null_check("data-parallel", f"{key} flow (bf16)",
+                           torch.from_numpy(out[key]).cuda(),
+                           torch.from_numpy(whole[key]).cuda(),
+                           torch.from_numpy(null[key]).cuda(), 1.0, unit="px",
+                           null_label="one replica with the plain attention "
+                           "for K1 and K2", plain_label="on one replica",
+                           got_label="split")
+            say("data-parallel", f"GMFlow step (bf16) over {n} replicas, "
+                f"{len(runs)} with pairs: launches {c} ({per_step} a replica) "
+                f"ok; {split_ms:.1f} ms a step of {BATCH - 1} pairs split "
+                f"against {whole_ms:.1f} ms on one replica (host clock, mean "
+                f"of {TIMED_STEPS}); on {card}")
+            del null
+        else:
+            # f32 at the band's full-scale weights, with TF32 off: the split
+            # within 1e-4 of the flow's scale of the whole step; the witness
+            # runs each replica's frames through the whole step on the first
+            # card, one after the other, and holds the split to it (the same
+            # work in the same batches), and that to the whole step (the same
+            # work in one batch of 7 pairs)
+            seq = [whole_step(r) for r in runs]
+            flows = {label: np.concatenate([o["fwd"] for o in outs]
+                                           + [o["bwd"] for o in outs])
+                     for label, outs in (("split", [out]), ("whole", [whole]),
+                                         ("one card", seq))}
+            scale = float(np.abs(flows["whole"]).max())
+            tol = 1e-4 * scale
+
+            def dist(a, b):
+                return float(np.abs(flows[a] - flows[b]).max())
+
+            err, same_batches, batching = (dist("split", "whole"),
+                                           dist("split", "one card"),
+                                           dist("one card", "whole"))
+            ok = err <= tol and same_batches <= tol
+            say("data-parallel", f"GMFlow step (f32, TF32 off, the band's "
+                f"weights) over {n} replicas, {len(runs)} with pairs: launches "
+                f"{c} ({per_step} a replica); max |split - whole| {err:.3e} px, "
+                f"tol {tol:.3e} px (1e-4 of the flow's {scale:.1f} px scale) "
+                f"{'ok' if err <= tol else 'FAIL'}; witness: max |split - the "
+                f"replicas' frames run one after the other on the first card "
+                f"(batches of {[len(r) - 1 for r in runs]} pairs)| "
+                f"{same_batches:.3e} px ({'bit-equal' if same_batches == 0 else 'not bit-equal'}; "
+                f"tol {tol:.3e}) {'ok' if same_batches <= tol else 'FAIL'}, "
+                f"and max |those batches - one batch of {BATCH - 1} pairs| "
+                f"{batching:.3e} px")
+            if not ok:
+                fail("the f32 data-parallel flow step disagrees with one "
+                     "replica")
+            del seq, flows
+        del model, whole_step, split, whole, out
+        torch.cuda.empty_cache()
+    return counts
+
+
+def port_tools_paths(runtime, frames, card, zero_counts, read_counts,
+                     per_path):
+    """Phases 32-33: the depth loop's device trace around the ViT-L step,
+    and the data-parallel depth and flow steps against one replica.
+    -> {path: launch counts}."""
+    counts = trace_phase(runtime, frames, card, zero_counts, read_counts,
+                         per_path)
+    devices, where = default_devices()
+    counts.update(data_parallel_paths(runtime, frames, card, zero_counts,
+                                      read_counts, per_path, devices, where))
+    return counts
+
+
+def host_tools_phase():
+    """Phase 34: the host tools on a short synthetic folder. concat_image,
+    to_float_rgb, create_folder/copy_folder and the viewer's helpers always;
+    concat_video and a make_video / extract_frames_from_video round trip
+    where the native codec loads. A machine without the codec's libraries
+    says so, with the loader's error."""
+    import tempfile
+
+    import cv2
+
+    from prisma_tpu_torch.cli import concat, view
+    from prisma_tpu_torch.io import image, video
+    from prisma_tpu_torch.ops import encode as enc
+
+    root = tempfile.mkdtemp(prefix="prisma_tpu_tools_")
+    try:
+        yy, xx = np.mgrid[0:TOOLS_HW[0], 0:TOOLS_HW[1]]
+        # smooth ramps, which x264 keeps within a level or two
+        ramps = [(xx + 2 * yy + 3 * i) / (TOOLS_HW[1] + 2 * TOOLS_HW[0])
+                 for i in range(TOOLS_FRAMES)]
+        rgb = [np.stack([xx * 2 + i * 4, yy * 3, xx + yy], -1).astype(np.uint8)
+               for i in range(TOOLS_FRAMES)]
+        heat = [(enc.heat_to_rgb(torch.from_numpy(r.astype(np.float32)))
+                 .numpy() * 255).astype(np.uint8) for r in ramps]
+        folder = os.path.join(root, "seq")
+        image.create_folder(folder)
+        cv2.imwrite(os.path.join(folder, "rgba.png"), rgb[0])
+        cv2.imwrite(os.path.join(folder, "depth.png"), heat[0])
+        data = {"bands": {"rgba": {"url": "rgba.png"},
+                          "depth": {"url": "depth.png"}}}
+        out = os.path.join(root, "sheet.png")
+        concat.concat_image(folder, out, data, ["depth"], ["rgba"])
+        sheet = cv2.imread(out)
+        if not np.array_equal(sheet, np.concatenate([heat[0], rgb[0]])):
+            fail("tools: concat_image's sheet is not the bands stacked")
+        image.copy_folder(folder, os.path.join(root, "copy"))
+        if sorted(os.listdir(os.path.join(root, "copy"))) != \
+                sorted(os.listdir(folder)):
+            fail("tools: copy_folder lost files")
+        if not np.array_equal(image.to_float_rgb(rgb[0]), rgb[0] / 255.0):
+            fail("tools: to_float_rgb")
+        depth = view.decode_depth_band(heat[0], 1.0, 5.0)
+        ramp = 1.0 + 4.0 * ramps[0]
+        if not np.abs(depth - ramp).max() <= 0.1:
+            fail(f"tools: decode_depth_band off by {np.abs(depth - ramp).max()}")
+        say("tools", f"concat_image ({list(sheet.shape)}), copy_folder, "
+            f"to_float_rgb and decode_depth_band (within "
+            f"{np.abs(depth - ramp).max():.3f} of the ramp, tol 0.1) ok")
+
+        try:
+            video._load_lib()
+        except OSError as e:
+            # only the codec's own libav libraries missing from the machine
+            # is the environment's limit; any other load error (a broken or
+            # absent libprisma_codec.so) fails the phase
+            if not LIBAV_MISSING.search(str(e)):
+                fail(f"tools: the native codec does not load: {e}")
+            say("tools", f"NOT RUN here: concat_video and the make_video / "
+                f"extract_frames_from_video round trip. The native codec "
+                f"({os.path.relpath(video._LIB_PATH, HERE)}) does not load on "
+                f"this machine: {e}. Its libavformat, libavcodec, libavutil "
+                f"and libswscale are not installed here (the environment's "
+                f"limit); tests/test_torch_tools.py drives both on the CPU")
+            return "not run: libav missing"
+        for name, frames in (("rgba.mp4", rgb), ("depth.mp4", heat)):
+            w = video.VideoWriter(TOOLS_HW[1], TOOLS_HW[0], 24.0,
+                                  filename=os.path.join(folder, name))
+            for f in frames:
+                w.write(f)
+            w.close()
+        data = {"fps": 24.0, "frames": TOOLS_FRAMES,
+                "bands": {"rgba": {"url": "rgba.mp4"},
+                          "depth": {"url": "depth.mp4"}}}
+        out = os.path.join(root, "sheet.mp4")
+        concat.concat_video(folder, out, data, ["depth"], ["rgba"])
+
+        def decoded(path):
+            r = video.VideoReader(path)
+            try:
+                return list(r)
+            finally:
+                r.close()
+
+        srcs = [decoded(os.path.join(folder, n)) for n in ("depth.mp4", "rgba.mp4")]
+        worst = 0.0
+        for got, top, bottom in zip(decoded(out), *srcs):
+            d = np.abs(got.astype(int) - np.concatenate([top, bottom]).astype(int))
+            worst = max(worst, float(d.mean()))
+        if len(decoded(out)) != TOOLS_FRAMES or worst >= X264_LEVELS:
+            fail(f"tools: concat_video's frames differ from the bands stacked "
+                 f"(mean {worst:.2f} levels)")
+        pngs = os.path.join(root, "pngs")
+        n = video.extract_frames_from_video(out, pngs, extension="png")
+        made = os.path.join(root, "made.mp4")
+        video.make_video(made, pngs, fps=24)
+        back = decoded(made)
+        worst = max(float(np.abs(a.astype(int) - b.astype(int)).mean())
+                    for a, b in zip(back, decoded(out)))
+        if n != TOOLS_FRAMES or len(back) != n or worst >= X264_LEVELS:
+            fail(f"tools: make_video / extract_frames_from_video round trip: "
+                 f"{n} frames out, {len(back)} back, mean {worst:.2f} levels")
+        say("tools", f"concat_video ({TOOLS_FRAMES} frames), "
+            f"extract_frames_from_video ({n} PNGs) and make_video back: "
+            f"within {worst:.2f} levels in mean (x264, tol {X264_LEVELS}) ok")
+        return "ok"
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def match_slabs(ours, theirs):
     """Match each valid instance of `theirs` to one of `ours` with its label,
     mask probabilities within 1e-4 and a decayed score within 5e-3 (the
@@ -2274,7 +2782,8 @@ def gmflow_pair(phase, infer, net, ds, expect, label=""):
 
 
 def null_check(phase, what, kernels, plain, null_path, span,
-               unit="of the range", null_label="plain with P rounded to bf16"):
+               unit="of the range", null_label="plain with P rounded to bf16",
+               plain_label="with the plain versions", got_label="kernels"):
     """The kernels' output must stay within twice the distance to the plain
     path of `null_path` (a plain path with the kernels' own roundings, or
     the JAX package's), in mean, 99.9th percentile and max (bf16
@@ -2287,13 +2796,20 @@ def null_check(phase, what, kernels, plain, null_path, span,
     got, null = stats(kernels), stats(null_path)
     ok = bool(torch.isfinite(kernels).all()) and \
         all(g <= 2 * n for g, n in zip(got, null))
-    say(phase, f"|{what} - {what} with the plain versions| ({unit}; mean, "
-        f"99.9th pct, max): kernels " + ", ".join(f"{g:.3e}" for g in got)
+    say(phase, f"|{what} - {what} {plain_label}| ({unit}; mean, "
+        f"99.9th pct, max): {got_label} " + ", ".join(f"{g:.3e}" for g in got)
         + f"; {null_label} " + ", ".join(f"{n:.3e}" for n in null)
         + f"; tol 2x the latter {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"the {what} through the kernels disagrees with the plain path")
+        fail(f"the {what} through the {got_label} disagrees with the "
+             f"reference path")
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--data-parallel"]:
+        data_parallel_main()
+    elif sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
+             f"--data-parallel")
+    else:
+        main()

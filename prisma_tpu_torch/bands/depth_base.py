@@ -9,8 +9,9 @@ Reference contract (bands/depth_anything.py:146-251, same for all depth bands):
 
 Frames arrive in batches from the background decoder thread; the step moves a
 uint8 batch to the model's device, runs infer + the normalize/heatmap
-epilogue there, eagerly on one device, and returns host numpy; the x264
-encode runs on the writer's background thread while the next batch computes.
+epilogue there, eagerly (over several cards: one replica and one slice of
+the batch a card, `parallel.mesh`), and returns host numpy; the x264 encode
+runs on the writer's background thread while the next batch computes.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from prisma_tpu_torch.io.image import open_rgb
 from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.io.writers import write_csv, write_depth, write_pcl
 from prisma_tpu_torch.ops import encode as enc
+from prisma_tpu_torch.parallel import mesh
 
 # A video step: (frames_u8 [B, H, W, 3], idx0 = the global index of
 #   frames[0]) -> dict of host arrays with 'heat' [B, H, W, 3] u8, 'min' [B],
@@ -36,25 +38,45 @@ ImageInfer = Callable[[np.ndarray], np.ndarray]
 
 
 def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
-              need_depth: bool, fused: bool = True) -> VideoStep:
+              need_depth: bool, fused: bool = True,
+              devices=None) -> VideoStep:
     """The shared depth video step: infer + the per-frame
     normalize/flip/heatmap epilogue, on the model's device.
 
     fused: infer(model, frames) is one model call over the batch
-    (depth_anything, zoedepth); otherwise infer(model, frames, idx0) takes
-    the global index of the batch's first frame too, for the tile and
-    ensemble drivers (patchfusion; marigold seeds by it)."""
-    device = next(model.parameters()).device
+    (depth_anything, zoedepth, midas); otherwise infer(model, frames, idx0)
+    takes the global index of the batch's first frame too, for the tile and
+    ensemble drivers (patchfusion; marigold seeds by it), which split their
+    own tiles or members (`patchfusion.infer`, `marigold.infer`: devices=).
 
-    @torch.inference_mode()
-    def step(frames: np.ndarray, idx0: int = 0) -> dict:
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
-        depth = infer(model, x) if fused else infer(model, x, idx0)
+    devices (fused only; a list, e.g. `parallel.mesh.data_devices`): the
+    model is replicated on each, and every batch is edge-padded to a
+    multiple of them and split, each replica running infer and the
+    epilogue on its frames; the padded frames' outputs are dropped."""
+    if devices and not fused:
+        raise ValueError("devices= splits the frames of a fused step only")
+    replicas = mesh.replicate(model, devices) if devices else None
+
+    def run(m: torch.nn.Module, frames: torch.Tensor, idx0: int) -> dict:
+        """The step on m's device -> device tensors (no wait)."""
+        x = frames.to(next(m.parameters()).device)
+        depth = infer(m, x) if fused else infer(m, x, idx0)
         heat, dmin, dmax = enc.depth_heat(depth, flip)
         out = {"heat": heat, "min": dmin, "max": dmax}
         if need_depth:
             out["depth"] = depth
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return out
+
+    @torch.inference_mode()
+    def step(frames: np.ndarray, idx0: int = 0) -> dict:
+        x = torch.from_numpy(np.ascontiguousarray(frames))
+        if replicas is None:
+            return {k: v.cpu().numpy() for k, v in run(model, x, idx0).items()}
+        chunks = mesh.pad_to_devices(x, len(replicas)).chunk(len(replicas))
+        outs = mesh.run_replicas(run, devices, [
+            (m, c, idx0) for m, c in zip(replicas, chunks)])
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:len(x)]
+                for k in outs[0]}
 
     return step
 
@@ -184,6 +206,7 @@ def run_video(io: BandIO, step: VideoStep, flip: bool,
                           flip=flip, npy=npy)
     reader.skip(sink.start)
 
+    prof.start_device_trace()
     for frames, valid in reader.batches(io.runtime.batch_size,
                                         pad_to_full=True):
         with prof.stage("device_step"):
@@ -192,6 +215,7 @@ def run_video(io: BandIO, step: VideoStep, flip: bool,
     n_done = sink.idx - sink.start
     sink.close()
     reader.close()
+    prof.stop_device_trace()
     prof.report(items=n_done)
 
 

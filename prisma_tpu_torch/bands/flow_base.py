@@ -8,8 +8,9 @@ frame, metadata bands.
 
 The model-specific part is `infer_pairs(model, img1, img2)`; the step moves
 a uint8 frame window [T+1, H, W, 3] to the model's device, runs the resize,
-the model and the HSV/consistency epilogues there, eagerly on one device,
-and returns host numpy per pair.
+the model and the HSV/consistency epilogues there, eagerly (over several
+cards: one replica and one run of the window a card, `parallel.mesh`), and
+returns host numpy per pair.
 """
 
 from __future__ import annotations
@@ -26,27 +27,36 @@ from prisma_tpu_torch.io.writers import write_csv, write_flo, write_flow_png16
 from prisma_tpu_torch.ops import encode as enc
 from prisma_tpu_torch.ops.flow import compute_fwdbwd_mask
 from prisma_tpu_torch.ops.resize import resize2d
+from prisma_tpu_torch.parallel import mesh
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 
 
 def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
                    need_masks: bool, need_flow: bool,
-                   need_enc: bool = False) -> Callable[[np.ndarray], dict]:
+                   need_enc: bool = False,
+                   devices=None) -> Callable[[np.ndarray], dict]:
     """The fused flow step on the model's device and in its dtype: uint8
     frames [T+1, H, W, 3] -> dict of host arrays per pair: 'fwd_rgb' [T, h,
     w, 3] uint8, 'max_disp' [T]; with need_flow or need_masks also 'fwd',
     'bwd' [T, h, w, 2] f32 and 'bwd_rgb'; with need_masks 'fwd_mask',
     'bwd_mask' [T, h, w] bool; with need_enc 'fwd_enc', 'bwd_enc' [T, h, w,
-    3] uint16 (flow + validity packed for the 16-bit PNGs)."""
-    dh, dw = ds_hw
-    p = next(model.parameters())
-    device, dtype = p.device, p.dtype
+    3] uint16 (flow + validity packed for the 16-bit PNGs).
 
-    @torch.inference_mode()
-    def step(frames_u8: np.ndarray) -> dict:
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(device)
+    devices (a list, e.g. `parallel.mesh.data_devices`): the model is
+    replicated on each, and a window whose T+1 frames they divide evenly is
+    split into one run of consecutive frames a device, each run extended by
+    the next one's first frame (the pair that crosses the boundary); a run
+    left with no pair idles. Another window runs whole on the model's
+    device."""
+    dh, dw = ds_hw
+    dtype = next(model.parameters()).dtype
+    split = len(devices) if devices else 1
+    replicas = mesh.replicate(model, devices) if split > 1 else None
+
+    def run(m: torch.nn.Module, frames_u8: np.ndarray) -> dict:
+        frames = torch.from_numpy(frames_u8).to(next(m.parameters()).device)
         ds = resize2d(frames.float(), (dh, dw), method="cubic").to(dtype)
-        fwd, bwd = infer_pairs(model, ds[:-1], ds[1:])
+        fwd, bwd = infer_pairs(m, ds[:-1], ds[1:])
         fwd = fwd.float()
         bwd = bwd.float()
         fwd_rgb, fwd_max = enc.process_flow(fwd)
@@ -55,15 +65,31 @@ def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
             out["fwd"] = fwd
             out["bwd"] = bwd
             out["bwd_rgb"] = enc.process_flow(bwd)[0]
-        enc_out = {}
         if need_masks:
-            fm, bm = compute_fwdbwd_mask(fwd, bwd)
-            out["fwd_mask"] = fm
-            out["bwd_mask"] = bm
-            if need_enc:
-                enc_out = {"fwd_enc": enc.encode_flow(fwd, fm),
-                           "bwd_enc": enc.encode_flow(bwd, bm)}
-        return {**{k: v.cpu().numpy() for k, v in out.items()}, **enc_out}
+            out["fwd_mask"], out["bwd_mask"] = compute_fwdbwd_mask(fwd, bwd)
+        return out
+
+    def host(out: dict) -> dict:
+        """run's device tensors -> host arrays, the 16-bit encodings made."""
+        res = {k: v.cpu().numpy() for k, v in out.items()}
+        if need_masks and need_enc:
+            res["fwd_enc"] = enc.encode_flow(out["fwd"], out["fwd_mask"])
+            res["bwd_enc"] = enc.encode_flow(out["bwd"], out["bwd_mask"])
+        return res
+
+    @torch.inference_mode()
+    def step(frames_u8: np.ndarray) -> dict:
+        frames_u8 = np.ascontiguousarray(frames_u8)
+        n = frames_u8.shape[0]
+        if split == 1 or n % split:
+            return host(run(model, frames_u8))
+        k = n // split
+        work = [(m, frames_u8[i * k:(i + 1) * k + 1])
+                for i, m in enumerate(replicas)]
+        work = [(m, f) for m, f in work if len(f) > 1]
+        outs = [host(o) for o in mesh.run_replicas(run, devices[:len(work)],
+                                                    work)]
+        return {key: np.concatenate([o[key] for o in outs]) for key in outs[0]}
 
     return step
 

@@ -25,6 +25,7 @@ from prisma_tpu_torch.io.image import open_rgb, write_rgb_u8
 from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.models import solov2
 from prisma_tpu_torch.ops.sdf import sdf_green_device
+from prisma_tpu_torch.parallel import mesh
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.weights.store import load_solov2
 
@@ -37,20 +38,26 @@ CLASS_IDS = (0, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23)
 CONFIDENCE_THRESHOLD = 0.5
 
 
-def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool):
+def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
+               devices=None):
     """The mask step on the model's device and in its dtype: uint8 frames
     [B, H, W, 3] -> host arrays 'composite' [B, H, W] f32 (the sum of the
-    kept masks x 255) and, with sdf, 'green' [B, H, W] f32."""
-    p = next(model.parameters())
-    device, dtype, cfg = p.device, p.dtype, model.cfg
-    class_ids = torch.tensor(CLASS_IDS, device=device)
+    kept masks x 255) and, with sdf, 'green' [B, H, W] f32.
 
-    @torch.inference_mode()
-    def step(frames_u8: np.ndarray) -> dict:
-        x = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(device)
+    devices (a list, e.g. `parallel.mesh.data_devices`): the model is
+    replicated on each, and every batch is edge-padded to a multiple of
+    them and split, one slice a replica; the padded frames' outputs are
+    dropped."""
+    dtype, cfg = next(model.parameters()).dtype, model.cfg
+    replicas = mesh.replicate(model, devices) if devices else None
+
+    def run(m: solov2.SOLOv2, frames_u8: torch.Tensor) -> dict:
+        device = next(m.parameters()).device
+        class_ids = torch.tensor(CLASS_IDS, device=device)
+        x = frames_u8.to(device)
         img, img_hw = solov2.preprocess(x, dtype=dtype, scale=cfg.scale)
         composite = []
-        for out in solov2.forward(model, img, img_hw, ori_hw):
+        for out in solov2.forward(m, img, img_hw, ori_hw):
             keep = (out["valid"] & (out["scores"] > confidence)
                     & (out["labels"][:, None] == class_ids[None]).any(dim=1))
             # the reference sums 255-white masks in float, then casts to
@@ -61,7 +68,17 @@ def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool):
         res = {"composite": composite}
         if sdf:
             res["green"] = sdf_green_device(composite != 0.0)
-        return {k: v.cpu().numpy() for k, v in res.items()}
+        return res
+
+    @torch.inference_mode()
+    def step(frames_u8: np.ndarray) -> dict:
+        x = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        if replicas is None:
+            return {k: v.cpu().numpy() for k, v in run(model, x).items()}
+        chunks = mesh.pad_to_devices(x, len(replicas)).chunk(len(replicas))
+        outs = mesh.run_replicas(run, devices, list(zip(replicas, chunks)))
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:len(x)]
+                for k in outs[0]}
 
     return step
 

@@ -6,7 +6,20 @@ without OpenCV; only reading and writing image files needs it.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def create_folder(path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+
+
+def copy_folder(src: str, dst: str) -> None:
+    """Recursive folder copy (reference io.py copy_folder)."""
+    import shutil
+
+    shutil.copytree(src, dst, dirs_exist_ok=True)
 
 
 def get_image_size(path: str) -> tuple[int, int]:
@@ -32,6 +45,14 @@ def open_rgb(path: str) -> np.ndarray:
     elif img.shape[2] == 4:
         img = cv2.cvtColor(img, cv2.COLOR_BGRA2BGR)
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def to_float_rgb(image) -> np.ndarray:
+    """An image array (gray, RGB or RGBA uint8) -> float RGB in [0, 1]."""
+    img = np.array(image)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return img[..., :3].astype(np.float64) / 255.0
 
 
 def write_rgb(path: str, rgb: np.ndarray) -> None:

@@ -183,6 +183,57 @@ def get_video_data(path: str):
         r.close()
 
 
+def extract_frames_from_video(video_path: str, output: str,
+                              extension: str = "jpg", invert: bool = False,
+                              fps: float | None = None) -> int:
+    """Dump a video to numbered frames (reference io.py:214-235, an ffmpeg
+    subprocess there) on the native reader: %03d.<ext> starting at 1
+    (ffmpeg's numbering); invert writes 255-frame; fps resamples by
+    nearest-frame skipping. Returns the frame count written."""
+    import cv2
+
+    os.makedirs(output, exist_ok=True)
+    r = VideoReader(video_path)
+    step = 1.0 if fps is None else max(r.fps, 1e-6) / fps
+    n, acc, idx = 0, 0.0, 0
+    try:
+        for frame in r:
+            if idx >= acc:
+                n += 1
+                acc += step
+                if invert:
+                    frame = 255 - frame
+                cv2.imwrite(os.path.join(output, f"{n:03d}.{extension}"),
+                            cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+            idx += 1
+    finally:
+        r.close()
+    return n
+
+
+def make_video(filename: str, folder: str = ".", fps: float = 24,
+               codec: str = "libx264", crf: int = 15) -> None:
+    """Encode a folder of numbered images (its .png files, else its .jpg
+    files, in name order) into a video (reference io.py:237-244, an ffmpeg
+    subprocess there) with the native writer."""
+    import glob
+
+    import cv2
+
+    frames = sorted(glob.glob(os.path.join(folder, "*.png"))) or \
+        sorted(glob.glob(os.path.join(folder, "*.jpg")))
+    if not frames:
+        raise FileNotFoundError(f"no .png/.jpg frames in {folder}")
+    first = cv2.imread(frames[0])
+    h, w = first.shape[:2]
+    writer = VideoWriter(w, h, fps, crf=crf, filename=filename, codec=codec)
+    try:
+        for p in frames:
+            writer.write(cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB))
+    finally:
+        writer.close()
+
+
 class VideoWriter:
     """x264 mp4 writer matching the reference VideoWriter's output settings.
 

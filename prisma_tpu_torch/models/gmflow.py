@@ -333,8 +333,10 @@ def shift_window_region_bands(h: int, w: int, ns: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def region_bands(h: int, w: int, ns: int, device) -> torch.Tensor:
-    """shift_window_region_bands as an int32 tensor on `device`."""
-    return torch.from_numpy(shift_window_region_bands(h, w, ns)).to(device)
+    """shift_window_region_bands as an int32 tensor on `device` (made
+    outside inference mode, as ops/resize's cached matrices are)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(shift_window_region_bands(h, w, ns)).to(device)
 
 
 def _win_split(x: torch.Tensor, h: int, w: int, ns: int,

@@ -32,6 +32,7 @@ from torch import nn
 from prisma_tpu_torch.models import sd2
 from prisma_tpu_torch.ops import nn as pnn
 from prisma_tpu_torch.ops.resize import resize2d
+from prisma_tpu_torch.parallel import mesh
 
 RGB_LATENT_SCALE = 0.18215
 DEPTH_LATENT_SCALE = 0.18215
@@ -556,11 +557,17 @@ def epilogue(aligned: torch.Tensor, out_hw) -> torch.Tensor:
 
 def infer(model: Marigold, frame_u8: torch.Tensor, denoising_steps: int = 10,
           ensemble_size: int = 10, processing_res: int = 768, seed: int = 0,
-          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+          compute_dtype: torch.dtype = torch.float32,
+          devices=None) -> torch.Tensor:
     """One frame [H, W, 3] uint8 on the model's device -> relative depth
     [H, W] f32 (the pipeline's min..max-rescaled output). The model must
     already be in compute_dtype. The members' initial latents come from
-    `member_latents` (tests replace it)."""
+    `member_latents` (tests replace it), drawn at the true ensemble size.
+
+    devices (`parallel.mesh`): the members are edge-padded to a multiple of
+    their count and split over replicas of the model there (the JAX
+    package's members across chips), each encoding the frame once; the
+    ensembling runs on the model's device on the true members."""
     H, W = frame_u8.shape[:2]
     w2, h2 = processing_size(W, H, processing_res)
     rgb = frame_u8.float()[None] / 255.0
@@ -570,8 +577,15 @@ def infer(model: Marigold, frame_u8: torch.Tensor, denoising_steps: int = 10,
     lat_ch = model.vae.post_quant_conv.weight.shape[0]
     depth_latent = member_latents(seed, ensemble_size,
                                   (lat_ch, h2 // ds, w2 // ds), frame_u8.device)
-    preds = single_infer(model, rgb.permute(0, 3, 1, 2), depth_latent,
-                         denoising_steps).float()
+    rgb = rgb.permute(0, 3, 1, 2)
+    if devices and len(devices) > 1:
+        chunks, n = mesh.split_batch_padded(depth_latent, devices)
+        outs = mesh.run_replicas(single_infer, devices, [
+            (m, rgb.to(d), c, denoising_steps)
+            for m, d, c in zip(mesh.replicate(model, devices), devices, chunks)])
+        preds = mesh.gather(outs, n, frame_u8.device).float()
+    else:
+        preds = single_infer(model, rgb, depth_latent, denoising_steps).float()
     if ensemble_size > 1:
         aligned, _mad = ensemble_depths_device(preds)
     else:

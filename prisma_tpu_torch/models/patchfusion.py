@@ -43,6 +43,7 @@ from prisma_tpu_torch.ops import nn as pnn
 from prisma_tpu_torch.ops.resize import _resize_weights, resize2d, \
     resize2d_nchw
 from prisma_tpu_torch.ops.roi_align import roi_align
+from prisma_tpu_torch.parallel import mesh
 
 MODEL_HW = (384, 512)    # ZoeDepthCustom's input (config img_size)
 N_MIDAS_OUT = 32
@@ -557,12 +558,30 @@ def _crop_resize(img: torch.Tensor, tiles, crop, model_hw) -> torch.Tensor:
     return resize2d_nchw(crops, model_hw, method="linear", align_corners=True)
 
 
+def _tiles_split(replicas, devices, coarses, crops, bbox, areas, prior):
+    """patchfusion_tiles over the devices: the batch edge-padded to a
+    multiple of their count and split, each part on its replica (coarses:
+    the coarse pass moved to each device) -> the depths [N, mh, mw] on the
+    first device."""
+    n = len(devices)
+    parts = [mesh.split_batch_padded(t, devices)[0] if t is not None
+             else [None] * n for t in (crops, bbox, areas, prior)]
+    outs = mesh.run_replicas(patchfusion_tiles, devices,
+                             list(zip(replicas, *parts, coarses)))
+    return mesh.gather(outs, crops.shape[0], crops.device)
+
+
 @torch.inference_mode()
 def infer(model: PatchFusion, image: torch.Tensor, mode: str = "p16",
           compute_dtype: torch.dtype = torch.float32,
-          tile_batch: int = 8) -> torch.Tensor:
+          tile_batch: int = 8, devices=None) -> torch.Tensor:
     """One image [H, W, 3] (uint8, or float in [0, 1]) on the model's device
-    -> metric depth [H, W] f32. The model must already be cast."""
+    -> metric depth [H, W] f32. The model must already be cast.
+
+    devices (`parallel.mesh`): each batch of tiles is edge-padded to a
+    multiple of their count and split over replicas of the model there
+    (the JAX package's tiles across chips); the coarse pass, the crops and
+    the blend stay on the model's device."""
     H, W = image.shape[:2]
     model_hw = model.model_hw
     resolution = pick_resolution(H, W)
@@ -574,6 +593,12 @@ def infer(model: PatchFusion, image: torch.Tensor, mode: str = "p16",
                            align_corners=True)
     blur = torch.from_numpy(generate_blur_mask(crop) + 1e-3).to(img.device)
     coarse = coarse_pass(model, img_lr.to(compute_dtype))
+    if devices and len(devices) > 1:
+        replicas = mesh.replicate(model, devices)
+        coarses = [([f.to(d) for f in coarse[0]], coarse[1].to(d))
+                   for d in devices]
+    else:
+        replicas = None
 
     avg = torch.zeros(resolution, dtype=torch.float32, device=img.device)
     cnt = torch.zeros_like(avg)
@@ -587,11 +612,13 @@ def infer(model: PatchFusion, image: torch.Tensor, mode: str = "p16",
             crops = _crop_resize(img_t, sub, crop, model_hw).to(compute_dtype)
             prior = None if ratio is None else \
                 _crop_resize(ratio, sub, crop, model_hw)
-            d = patchfusion_tiles(
-                model, crops,
-                torch.tensor(bboxes[s:s + tile_batch], device=img.device),
-                torch.tensor(areas[s:s + tile_batch, None], device=img.device),
-                prior, coarse)
+            bbox = torch.tensor(bboxes[s:s + tile_batch], device=img.device)
+            area = torch.tensor(areas[s:s + tile_batch, None], device=img.device)
+            if replicas is None:
+                d = patchfusion_tiles(model, crops, bbox, area, prior, coarse)
+            else:
+                d = _tiles_split(replicas, devices, coarses, crops, bbox,
+                                 area, prior)
             d = resize2d_nchw(d[:, None], crop, method="linear",
                               align_corners=True)[:, 0]
             for (y, x), d_i in zip(sub, d):

@@ -114,9 +114,12 @@ def _weights(in_size: int, out_size: int, method: str, align_corners: bool,
              scale: float | None, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
     """The resampling matrix on `device`, cast to `dtype` (kept: the band
-    resizes every batch with the same few matrices)."""
+    resizes every batch with the same few matrices). Made outside inference
+    mode whoever asks first: a cached inference tensor would refuse a later
+    caller whose input tracks gradients."""
     w = _resize_weights(in_size, out_size, method, align_corners, scale)
-    return torch.from_numpy(w).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(w).to(device=device, dtype=dtype)
 
 
 def _axis_weights(x, in_hw, out_hw, method, align_corners, scale):

@@ -1,5 +1,4 @@
-"""Per-stage pipeline profiling (counterpart of prisma_tpu/runtime/profiling.py,
-without the JAX device trace).
+"""Per-stage pipeline profiling (counterpart of prisma_tpu/runtime/profiling.py).
 
 Usage:
     prof = StageProfiler(enabled=True)
@@ -9,6 +8,9 @@ Usage:
 
 Set PRISMA_TPU_PROFILE=1 to enable in the band drivers. A stage measures host
 time; the band's device step ends in a host copy, so it includes device time.
+PRISMA_TPU_TRACE=<dir> additionally records a torch.profiler trace (CPU and,
+with a card, CUDA activities) between start_device_trace and
+stop_device_trace, written into <dir> as a Chrome trace when it stops.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ class StageProfiler:
         self.enabled = enabled
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self._trace_dir = os.environ.get("PRISMA_TPU_TRACE")
+        self._trace = None
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -38,6 +42,31 @@ class StageProfiler:
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
+
+    def start_device_trace(self) -> None:
+        """Start the torch.profiler trace if PRISMA_TPU_TRACE names a
+        directory and none is running."""
+        if self._trace_dir and self._trace is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._trace = profile(activities=activities)
+            self._trace.start()
+
+    def stop_device_trace(self) -> str | None:
+        """Stop the running trace and write it into PRISMA_TPU_TRACE as a
+        Chrome trace -> its path (None if no trace ran)."""
+        if self._trace is None:
+            return None
+        trace, self._trace = self._trace, None
+        trace.stop()
+        os.makedirs(self._trace_dir, exist_ok=True)
+        path = os.path.join(self._trace_dir, f"prisma_tpu_torch_{os.getpid()}_"
+                            f"{time.time_ns()}.pt.trace.json")
+        trace.export_chrome_trace(path)
+        return path
 
     def report(self, items: int | None = None) -> str:
         if not self.enabled or not self.totals:

@@ -203,13 +203,22 @@ def load_solov2(runtime: RuntimeConfig,
 # the bin count (the JAX converter reads none of them either)
 DERIVED = ("*relative_position_index", "*attn_mask",
            "*log_binomial_transform.k_idx", "*log_binomial_transform.K_minus_1")
+# timm's classifier on the MiDaS BEiT core (beit_large_patch16_384 pools by
+# the mean, so timm registers fc_norm and head), which neither package reads;
+# under PatchFusion it sits in both cores
+BEIT_UNREAD = ("*core.core.pretrained.model.fc_norm.*",
+               "*core.core.pretrained.model.head.*")
+
+
+def _drop(sd: dict, patterns) -> dict:
+    return {k: v for k, v in sd.items()
+            if not any(fnmatch.fnmatch(k, p) for p in patterns)}
 
 
 def _load_strict(model: torch.nn.Module, sd: dict) -> torch.nn.Module:
     """load_state_dict(strict=True) of a checkpoint without its derived
     buffers; batch-norm step counters it leaves out are filled in."""
-    sd = {k: v for k, v in sd.items()
-          if not any(fnmatch.fnmatch(k, p) for p in DERIVED)}
+    sd = _drop(sd, DERIVED)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
             sd.setdefault(k, v.new_zeros(()))
@@ -247,17 +256,19 @@ def _zoed_widths(sd: dict, prefix: str = "") -> dict:
 
 def zoed_from_state_dict(sd: dict, device="cpu") -> zoed.ZoeDepth:
     """A ZoeDepth of the state_dict's widths, loaded with strict=True (the
-    derived buffers dropped)."""
-    return _load_strict(zoed.build(**_zoed_widths(sd), device=device), sd)
+    derived buffers and timm's BEiT classifier dropped)."""
+    return _load_strict(zoed.build(**_zoed_widths(sd), device=device),
+                        _drop(sd, BEIT_UNREAD))
 
 
 def patchfusion_from_state_dict(sd: dict, model_hw=pf.MODEL_HW,
                                 device="cpu") -> pf.PatchFusion:
     """A PatchFusion of the state_dict's widths at model_hw, loaded with
-    strict=True (the derived buffers dropped)."""
+    strict=True (the derived buffers and both cores' timm BEiT classifiers
+    dropped)."""
     model = pf.build(**_zoed_widths(sd, "coarse_model."), model_hw=model_hw,
                      device=device)
-    return _load_strict(model, sd)
+    return _load_strict(model, _drop(sd, BEIT_UNREAD))
 
 
 def load_zoed(runtime: RuntimeConfig) -> zoed.ZoeDepth:
@@ -301,8 +312,7 @@ MIDAS_UNREAD = ("pretrained.model.head.*",)
 def midas_dpt_from_state_dict(sd: dict, device="cpu") -> midas.MidasDPT:
     """A DPT_Large of the state_dict's widths (heads of 64 channels, the
     position grid from pos_embed), loaded with strict=True."""
-    sd = {k: v for k, v in sd.items()
-          if not any(fnmatch.fnmatch(k, p) for p in MIDAS_UNREAD)}
+    sd = _drop(sd, MIDAS_UNREAD)
     b = "pretrained.model."
     depth = 0
     while f"{b}blocks.{depth}.norm1.weight" in sd:

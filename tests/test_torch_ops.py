@@ -140,6 +140,22 @@ def test_resize2d_nchw_scale_factor():
     np.testing.assert_allclose(_np(ours), _np(theirs), atol=2e-6)
 
 
+def test_resize_matrices_cached_in_inference_mode_serve_autograd():
+    """A resampling matrix first made under inference mode (a band's step)
+    and cached still serves a later caller whose input tracks gradients (a
+    position-embedding resample of a module's parameter)."""
+    out_hw = (3, 7)  # a size no other test here asks for
+    with torch.inference_mode():
+        resize.resize2d_nchw(torch.zeros(1, 2, 11, 13), out_hw)
+    x = torch.from_numpy(RNG.normal(size=(1, 2, 11, 13)).astype(np.float32))
+    x.requires_grad_(True)
+    ours = resize.resize2d_nchw(x, out_hw)
+    ours.sum().backward()
+    theirs = jresize.resize2d_nchw(jnp.asarray(x.detach().numpy()), out_hw)
+    np.testing.assert_allclose(_np(ours.detach()), _np(theirs), atol=2e-6)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
 @pytest.mark.parametrize("wh", [(1920, 1080), (518, 518), (100, 200),
                                 (96, 64)])
 def test_dpt_input_size(wh):

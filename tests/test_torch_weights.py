@@ -404,6 +404,53 @@ def test_beit_family_checkpoint_files_load_strict(tmp_path, beit_models, family)
          else store.patchfusion_from_state_dict)(broken)
 
 
+def _timm_classifier(sd: dict) -> dict:
+    """timm's fc_norm and head on every BEiT core of a state_dict, as
+    beit_large_patch16_384 (mean pooling) registers them: a layer norm of
+    the embed width and a 1000-class linear."""
+    extra = {}
+    for k, v in sd.items():
+        if k.endswith("core.core.pretrained.model.cls_token"):
+            p, D = k[:-len("cls_token")], v.shape[-1]
+            extra.update({p + "fc_norm.weight": torch.ones(D),
+                          p + "fc_norm.bias": torch.zeros(D),
+                          p + "head.weight": torch.randn(1000, D),
+                          p + "head.bias": torch.zeros(1000)})
+    return extra
+
+
+@pytest.mark.parametrize("family", ["zoed", "patchfusion"])
+def test_beit_family_files_with_timm_classifier_load_strict(tmp_path,
+                                                            beit_models,
+                                                            family):
+    """ZoeD_M12_N.pt and patchfusion_u4k.pt as timm saves their BEiT cores,
+    with fc_norm.* and head.* (PatchFusion: in both cores): they load with
+    strict=True in the port, as the JAX converter reads past them; one other
+    stray key still raises."""
+    sd = beit_models[family].state_dict()
+    timm = _timm_classifier(sd)
+    assert len(timm) == (8 if family == "patchfusion" else 4)
+    full = {**sd, **_derived_buffers(sd), **timm}
+    runtime = RuntimeConfig(models_dir=str(tmp_path), random_weights=False,
+                            device="cpu")
+    np_sd = {k: v.numpy() for k, v in full.items()}
+    if family == "zoed":
+        torch.save({"model": full}, tmp_path / "ZoeD_M12_N.pt")
+        loaded = store.load_zoed(runtime)
+        convert_zoed({"model": np_sd})
+    else:
+        torch.save(full, tmp_path / "patchfusion_u4k.pt")
+        loaded, _hw = store.load_patchfusion(runtime)
+        convert_patchfusion(np_sd)
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    stray = {**full, "core.core.pretrained.model.fc_norm2.weight":
+             torch.ones(4)}
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        (store.zoed_from_state_dict if family == "zoed"
+         else store.patchfusion_from_state_dict)(stray)
+
+
 def test_beit_family_random_init_is_seeded(monkeypatch, tmp_path):
     monkeypatch.setenv("PRISMA_ZOED_DEPTH", "4")
     monkeypatch.setenv("PRISMA_PF_DEPTH", "4")
