@@ -33,7 +33,8 @@ non-zero at once.
      flash_attention_streamed.cu (cuobjdump -sass): each must use wgmma
      (HGMMA > 0) and no legacy HMMA, and ptxas must serialize the wgmma of
      none (C7514/C7515); the same counts of raft_lookup.cu's kernels, which
-     must load with cp.async (LDGSTS > 0)
+     must load with cp.async (LDGSTS > 0); the bulk copies (UBLKCP) of
+     probe_gather.cu's kernels, which K6a's and K6b's must have
   3. k1: K1 flash attention against its plain version, eleven shapes (the
      128-row tile edges at d=128, the metric core's ragged 1037 tokens,
      DPT_Large's [128, 337, 64] and the Marigold UNet's [50, 5184, 64] and
@@ -80,10 +81,19 @@ non-zero at once.
      activations every K4 and K5 call held to its plain version, and the
      flow held within 2x the null distance of a plain path whose lookup
      blends in bf16 as the JAX package does
- 14. k6: the probe kernels K6a (lane gather) and K6b (minor transpose) at
-     the probe's shapes in f32 and bf16, equal to their plain versions;
-     times back to back, device time alone (torch.profiler), host µs per
-     wrapper call, and an empty kernel through the same launch path
+ 14. k6: the probe kernels K6a (lane gather) and K6b (minor transpose),
+     each equal bit for bit to its plain version in f32 and bf16, launches
+     counted: at the probe's shapes, at ragged ones (taps of 1 and past the
+     row, offsets past both ends, rows longer than a span; odd W and T,
+     slabs larger than a buffer) and at one RAFT level-0 iteration's size
+     (the probe's block 2295 times: K6a [13219200, 102], K6b [18360, 180,
+     16]) and past the previous grid's 65535 batches (K6b [70000, 180,
+     16]); at those sizes the kernel and the previous design in turns,
+     torch.gather or .transpose(1, 2).contiguous(), the plain version and
+     the bound (K6a's both ways: the windows its outputs need, and all of
+     x); at the probe's shapes times back to back, device time alone
+     (torch.profiler), host µs per wrapper call, and an empty kernel
+     through the same launch path
  15. metric-f32: a small metric Depth-Anything (vits core, the full bins
      head) in f32 with TF32 off on the card against the CPU
  16. metric: the metric ViT-L step (392x518 core, bins head in f32) as
@@ -254,13 +264,16 @@ KERNEL_SYMBOLS = {
     "K4": ("instance_norm_relu_kernel",),
     "K5": ("raft_window_lookup_kernel",),
     "K6a": ("lane_gather_kernel",),
-    "K6b": ("minor_transpose_kernel",)}
+    "K6b": ("minor_transpose_kernel", "minor_transpose_tiled_kernel")}
 DESIGNS = {
     "K1": "wgmma+tma", "K2": "wgmma+tma",  # the bf16 kernels; f32 by FMA
     "K3": "wgmma+tma, two S in flight", "K4": "block-reduction",
     "K5": "cp.async 16-byte row chunks, two buffers of 16-pixel groups",
-    "K6a": "per-value-gather", "K6b": "smem-tiled-transpose"}
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+    "K6a": "taps windows only, spans of whole rows built in shared memory and "
+           "stored with one bulk copy, two buffers, persistent grid",
+    "K6b": "whole slabs in and out by bulk copy, two buffers each way, a "
+           "bank-shifted transpose in shared memory, persistent 1-D grid"}
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA", "UBLKCP")
 
 
 def fail(msg):
@@ -531,7 +544,7 @@ def main():
     from prisma_tpu_torch.ops.cuda import probe_gather as pg
     from prisma_tpu_torch.ops.cuda import raft_lookup as rl
     from prisma_tpu_torch.ops.resize import resize2d
-    from prisma_tpu_torch.runtime import check_lookup, launch_cost
+    from prisma_tpu_torch.runtime import check_gather, check_lookup, launch_cost
     from prisma_tpu_torch.runtime.config import RuntimeConfig
     from prisma_tpu_torch.weights import store
     import torch.nn.functional as F
@@ -593,6 +606,19 @@ def main():
     if len(k5_sass) != 8 or any(c["LDGSTS"] == 0 for c in k5_sass.values()):
         fail(f"K5's kernels must load their patch rows with cp.async (LDGSTS): "
              f"{k5_sass}")
+    k6_sass = sass_counts(libs["probe_gather"])
+    say("build", "probe_gather.cu (registers, spill stores/loads in bytes; "
+        "bulk copies): " + " | ".join(
+            f"{label} {regs[label]['registers']}, {regs[label]['spill_stores']}/"
+            f"{regs[label]['spill_loads']}; UBLKCP {c['UBLKCP']}"
+            for label, c in k6_sass.items()))
+    # lane_gather_kernel and minor_transpose_kernel for 4- and 2-byte values
+    # (the tiled path of slabs larger than a buffer has none)
+    bulk = {label: c for label, c in k6_sass.items()
+            if label.split("<")[0] in ("lane_gather_kernel", "minor_transpose_kernel")}
+    if len(bulk) != 4 or any(c["UBLKCP"] == 0 for c in bulk.values()):
+        fail(f"K6a's and K6b's kernels must move their spans and slabs with bulk "
+             f"copies (UBLKCP): {k6_sass}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1203,37 +1229,33 @@ def main():
     del model, step, outs, flows, ds
     torch.cuda.empty_cache()
 
-    # 14. K6: the probe kernels, as the probe ran them
-    cases_a = []
-    for (S, H), lo, hi in (((16, 128), -4, 124), ((16, 256), 0, 246),
-                           ((5760, 102), 0, 92)):
-        off = torch.from_numpy(rng.integers(lo, hi, S).astype(np.int32)).cuda()
-        for dtype in (torch.float32, torch.bfloat16):
-            cases_a.append((torch.rand((S, H), generator=gen, device="cuda")
-                            .to(dtype), off))
-    cases_b = [torch.rand((8, 180, 16), generator=gen, device="cuda").to(dtype)
-               for dtype in (torch.float32, torch.bfloat16)]
+    # 14. K6: the probe kernels at the probe's shapes, ragged ones and one
+    # RAFT level-0 iteration's size
+    # the probe's offsets come from the run's numpy stream, as this phase has
+    # always drawn them, so that the later phases' inputs stay as they were
+    probe_offsets = [torch.from_numpy(rng.integers(lo, hi, shape[0]).astype(np.int32))
+                     .cuda() for shape, lo, hi in check_gather.PROBE_A]
+    cases_a, cases_b = check_gather.small_cases(gen, probe_offsets)
     zero_counts()
-    outs_a = [pg.lane_gather(x, off, 10) for x, off in cases_a]
-    outs_b = [pg.minor_transpose(x) for x in cases_b]
+    outs_a = [pg.lane_gather(x, off, taps) for _, x, off, taps in cases_a]
+    outs_b = [pg.minor_transpose(x) for _, x in cases_b]
     torch.cuda.synchronize()
     probe_counts = read_counts()
     if probe_counts != per_path(K6a=len(cases_a), K6b=len(cases_b)):
         fail(f"probe launches {probe_counts}")
-    for (x, off), out in zip(cases_a, outs_a):
-        if not torch.equal(out, pg.lane_gather_ref(x, off, 10)):
-            fail(f"k6: lane_gather at {list(x.shape)} {x.dtype} differs from "
-                 f"its plain version")
-    for x, out in zip(cases_b, outs_b):
-        if not torch.equal(out, pg.minor_transpose_ref(x)):
-            fail(f"k6: minor_transpose at {list(x.shape)} {x.dtype} differs")
-    say("k6", "lane_gather at [16, 128], [16, 256], [5760, 102] and "
-        "minor_transpose at [8, 180, 16], f32 and bf16: equal to the plain "
-        f"versions; launches {probe_counts} ok")
-    x, off = cases_a[4]  # the probe's perf shape [5760, 102], f32
+    for (label, x, off, taps), out in zip(cases_a, outs_a):
+        if not check_gather.gather_equal(x, off, taps, out):
+            fail(f"k6: lane_gather at {label} differs from its plain version")
+    for (label, x), out in zip(cases_b, outs_b):
+        if not check_gather.transpose_equal(x, out):
+            fail(f"k6: minor_transpose at {label} differs from its plain version")
+    say("k6", "lane_gather at " + ", ".join(c[0] for c in cases_a)
+        + "; minor_transpose at " + ", ".join(c[0] for c in cases_b)
+        + f": equal to the plain versions bit for bit; launches {probe_counts} ok")
+    _, x, off, _ = cases_a[4]  # the probe's perf shape [5760, 102], f32
     li = torch.arange(x.shape[1], device="cuda").clamp_max(9)
     idx = (off.long()[:, None] + li).clamp(0, x.shape[1] - 1)
-    xt = cases_b[0]
+    xt = cases_b[0][1]  # [8, 180, 16] f32
     probe_calls = {"K6a": lambda: pg.lane_gather(x, off, 10),
                    "K6b": lambda: pg.minor_transpose(xt),
                    "empty": lambda: launch_cost.empty_launch(x.get_device())}
@@ -1242,32 +1264,79 @@ def main():
                                      "K6b": "minor_transpose_kernel",
                                      "empty": "empty_kernel"})
     empty_ms = cuda_ms(probe_calls["empty"], 50)
-    k6a = dict(max_abs_err=0.0, ms=cuda_ms(probe_calls["K6a"], 50),
-               plain_ms=cuda_ms(lambda: pg.lane_gather_ref(x, off, 10), 50),
-               bound_ms=1e3 * nbytes(x, outs_a[4], off) / HBM_BYTES_S,
-               bound_by="bytes",
-               library_ms=library_ms(lambda: torch.gather(x, 1, idx), 50),
-               host_us=host["K6a"], device_ms=device["K6a"] / 1e3,
-               empty_launch_ms=empty_ms)
-    k6b = dict(max_abs_err=0.0, ms=cuda_ms(probe_calls["K6b"], 50),
-               plain_ms=cuda_ms(lambda: pg.minor_transpose_ref(xt), 50),
-               bound_ms=1e3 * nbytes(xt, outs_b[0]) / HBM_BYTES_S,
-               bound_by="bytes",
-               library_ms=library_ms(lambda: xt.transpose(1, 2).contiguous(), 50),
-               host_us=host["K6b"], device_ms=device["K6b"] / 1e3,
-               empty_launch_ms=empty_ms)
-    say("k6", f"time, lane_gather [5760, 102] f32: kernel {k6a['ms']:.4f} ms, "
-        f"plain {k6a['plain_ms']:.4f} ms, torch.gather {k6a['library_ms']} ms, "
-        f"bound {k6a['bound_ms']:.4f} ms; minor_transpose [8, 180, 16] f32: "
-        f"kernel {k6b['ms']:.4f} ms, plain {k6b['plain_ms']:.4f} ms, "
-        f".transpose(1, 2).contiguous() {k6b['library_ms']} ms, bound "
-        f"{k6b['bound_ms']:.4f} ms (CUDA events over 50 launches back to back)")
+    at_probe = {
+        "K6a": dict(shape=list(x.shape), ms=cuda_ms(probe_calls["K6a"], 50),
+                    plain_ms=cuda_ms(lambda: pg.lane_gather_ref(x, off, 10), 50),
+                    bound_ms=1e3 * check_gather.gather_bytes(x, 10)["windows"]
+                    / HBM_BYTES_S,
+                    library_ms=library_ms(lambda: torch.gather(x, 1, idx), 50),
+                    host_us=host["K6a"], device_ms=device["K6a"] / 1e3,
+                    empty_launch_ms=empty_ms),
+        "K6b": dict(shape=list(xt.shape), ms=cuda_ms(probe_calls["K6b"], 50),
+                    plain_ms=cuda_ms(lambda: pg.minor_transpose_ref(xt), 50),
+                    bound_ms=1e3 * check_gather.transpose_bytes(xt) / HBM_BYTES_S,
+                    library_ms=library_ms(lambda: xt.transpose(1, 2).contiguous(), 50),
+                    host_us=host["K6b"], device_ms=device["K6b"] / 1e3,
+                    empty_launch_ms=empty_ms)}
+    pa, pb = at_probe["K6a"], at_probe["K6b"]
+    say("k6", f"time at the probe's shapes, lane_gather [5760, 102] f32: kernel "
+        f"{pa['ms']:.4f} ms, plain {pa['plain_ms']:.4f} ms, torch.gather "
+        f"{pa['library_ms']} ms, bound {pa['bound_ms']:.4f} ms; minor_transpose "
+        f"[8, 180, 16] f32: kernel {pb['ms']:.4f} ms, plain {pb['plain_ms']:.4f} ms, "
+        f".transpose(1, 2).contiguous() {pb['library_ms']} ms, bound "
+        f"{pb['bound_ms']:.4f} ms (CUDA events over 50 launches back to back)")
     say("k6", f"the launch path: an empty kernel {empty_ms:.4f} ms back to "
         f"back; host time per wrapper call (1000 calls, no sync): lane_gather "
         f"{host['K6a']:.2f} us, minor_transpose {host['K6b']:.2f} us, empty "
         f"{host['empty']:.2f} us; device time alone (torch.profiler): "
         f"lane_gather {device['K6a']:.2f} us, minor_transpose "
         f"{device['K6b']:.2f} us, empty {device['empty']:.2f} us")
+    del cases_a, cases_b, outs_a, outs_b, x, off, idx, xt, probe_calls
+    torch.cuda.empty_cache()
+    # one RAFT level-0 iteration's size, one case at a time (up to 5.4 GB an
+    # input): counts zeroed before each case's launch and read after it
+    say("k6", f"at scale: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the "
+        f"card held by earlier phases")
+    at_scale = {"K6a": [], "K6b": []}
+    for kernel, label, make in check_gather.scale_cases(gen):
+        inputs = make()
+        zero_counts()
+        out = (pg.lane_gather(*inputs, check_gather.TAPS) if kernel == "K6a"
+               else pg.minor_transpose(*inputs))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != per_path(**{kernel: 1}):
+            fail(f"k6: launches at {label}: {counts}")
+        probe_counts = {key: probe_counts[key] + counts[key] for key in counts}
+        if not (check_gather.gather_equal(*inputs, check_gather.TAPS, out)
+                if kernel == "K6a" else check_gather.transpose_equal(*inputs, out)):
+            fail(f"k6: {label} differs from its plain version")
+        del out
+        t = (check_gather.time_gather(*inputs, check_gather.TAPS) if kernel == "K6a"
+             else check_gather.time_transpose(*inputs))
+        say("k6", check_gather.describe(f"{label}, equal bit for bit", t)
+            + f" (CUDA events, back to back, inputs far past the 50 MB L2); on {card}")
+        at_scale[kernel].append(dict(shape=list(inputs[0].shape),
+                                     dtype=str(inputs[0].dtype)[6:], **t))
+        del inputs
+        torch.cuda.empty_cache()
+
+    def k6_row(key):
+        """The kernels line's row: this run's numbers at the first at-scale
+        case (f32), the others and the probe's shape beside them; the
+        previous design's times stay in the phase's lines."""
+        cases = [{k: v for k, v in c.items() if not k.startswith("previous")}
+                 for c in at_scale[key]]
+        first = cases[0]
+        return dict(max_abs_err=0.0, **{k: first[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            shape=first["shape"], at_scale=cases[1:], at_probe_shape=at_probe[key],
+            **({"bound_whole_x_ms": first["bound_whole_x_ms"],
+                "bound_counts": "windows: each row's taps window, the output and "
+                                "the offsets (bound_ms); whole_x: all of x read"}
+               if key == "K6a" else {}))
+    k6a, k6b = k6_row("K6a"), k6_row("K6b")
+    say("k6", f"launches over the phase {probe_counts} ok")
 
     # 15. metric Depth-Anything in f32 on the card (TF32 off) against the CPU
     vits = vit.VIT_CONFIGS["vits"]
@@ -1552,7 +1621,8 @@ def main():
         "launches": launches[key], "launches_by_path": by_path[key], **row,
         "design": DESIGNS[key], "registers": compiled(key, regs),
         **({"sass": compiled(key, bf16_sass)} if key in ("K1", "K2", "K3") else {}),
-        **({"sass": k5_sass} if key == "K5" else {})}
+        **({"sass": k5_sass} if key == "K5" else {}),
+        **({"sass": compiled(key, k6_sass)} if key in ("K6a", "K6b") else {})}
         for name, key, src, replaces, row in rows],
         "host_tools_codec": codec}))
     print(json.dumps({"ok": True, "device": {

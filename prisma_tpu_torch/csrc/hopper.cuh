@@ -1,10 +1,11 @@
 // Hopper (sm_90a) primitives shared by the port's bf16 attention kernels
-// (flash_attention.cu: K1/K2; flash_attention_streamed.cu: K3), as inline PTX: shared-memory
-// mbarriers, TMA tile loads, wgmma descriptors and the S = Q·Kᵀ product, the SFU exp2, and
+// (flash_attention.cu: K1/K2; flash_attention_streamed.cu: K3) and the probe kernels
+// (probe_gather.cu: K6a/K6b), as inline PTX: shared-memory mbarriers, TMA tile loads, bulk
+// copies of contiguous spans, wgmma descriptors and the S = Q·Kᵀ product, the SFU exp2, and
 // the host side of a launch (tensor maps, the dynamic shared-memory cap).
 //
 // ops/cuda/build.py hashes this header into the name of every library whose source
-// includes it, so an edit here rebuilds both.
+// includes it, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -69,6 +70,55 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Makes mbarrier inits visible to the async proxy (and the cluster) before first use.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses to shared memory (stores that a bulk
+// store will read, reads of a buffer that a bulk load will overwrite) before later
+// async-proxy operations.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A bulk copy (no tensor map) of `bytes` contiguous bytes from global to shared memory,
+// completing on the mbarrier `bar` as `bytes` of transaction. Both addresses 16-byte
+// aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A bulk copy of `bytes` contiguous bytes from shared to global memory, in this thread's
+// current bulk group (alignment as bulk_load).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// Closes this thread's bulk group (an empty one if it issued no bulk store since).
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read shared memory: the buffers of
+// the others may be written again.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

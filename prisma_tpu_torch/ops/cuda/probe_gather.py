@@ -42,7 +42,8 @@ def _entries():
     p, i = ctypes.c_void_p, ctypes.c_int
     return (launch.entry("probe_gather", "prisma_lane_gather",
                          [p, p, p, ctypes.c_longlong, i, i, i]),
-            launch.entry("probe_gather", "prisma_minor_transpose", [p, p, i, i, i, i]))
+            launch.entry("probe_gather", "prisma_minor_transpose",
+                         [p, p, ctypes.c_longlong, i, i, i]))
 
 
 def _check(x: torch.Tensor, name: str, dim: int) -> None:
@@ -69,8 +70,11 @@ def lane_gather(x: torch.Tensor, off: torch.Tensor, taps: int) -> torch.Tensor:
     device = x.get_device()
     if (code is None or len(shape) != 2 or not x.is_contiguous() or not x.numel()
             or off.get_device() != device or off.dtype != torch.int32
-            or off.shape != shape[:1] or not off.is_contiguous() or taps < 1):
+            or off.shape != shape[:1] or not off.is_contiguous() or taps < 1
+            or shape[1] >= 2 ** 30):
         _check(x, "lane_gather", 2)
+        if shape[1] >= 2 ** 30:
+            raise ValueError(f"lane_gather takes rows shorter than 2^30, got {shape[1]}")
         if off.get_device() != device:
             raise ValueError("x and off must lie on one device")
         if taps < 1:
@@ -94,9 +98,8 @@ def minor_transpose(x: torch.Tensor) -> torch.Tensor:
     if code is None or len(shape) != 3 or not x.is_contiguous() or not x.numel():
         _check(x, "minor_transpose", 3)
     B, W, T = shape
-    if B > 65535 or W * T >= 2 ** 31:
-        raise ValueError(f"minor_transpose takes B <= 65535 and W·T < 2^31, "
-                         f"got {tuple(shape)}")
+    if W * T >= 2 ** 31:
+        raise ValueError(f"minor_transpose takes W·T < 2^31, got {tuple(shape)}")
     o = x.new_empty((B, T, W))
     launch.launch("minor_transpose", _entries()[1], x.get_device(),
                   x.data_ptr(), o.data_ptr(), B, W, T, code)
