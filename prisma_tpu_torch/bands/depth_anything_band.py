@@ -19,6 +19,7 @@ from prisma_tpu_torch.bands.base import BandIO, resolve
 from prisma_tpu_torch.models import depth_anything as da
 from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
+from prisma_tpu_torch.runtime.profiling import SETUP_WEIGHTS, timed
 from prisma_tpu_torch.weights.store import load_depth_anything
 
 BAND = "depth_anything"
@@ -39,7 +40,8 @@ def build_infer(runtime: RuntimeConfig, encoder: str = "vitl",
                                             metric=metric)
     dtype = runtime.resolve_dtype()
     if kind == "metric":
-        model = model.to(device=device).cast_core(dtype)
+        with timed(SETUP_WEIGHTS):
+            model = model.to(device=device).cast_core(dtype)
         if img_size is None:
             size = (392, 518)
         elif hasattr(img_size, "__len__"):
@@ -50,7 +52,8 @@ def build_infer(runtime: RuntimeConfig, encoder: str = "vitl",
         infer = functools.partial(zoe.metric_depth_anything_infer,
                                   img_size=size, compute_dtype=dtype)
         return model, infer, False
-    model = model.to(device=device, dtype=dtype)
+    with timed(SETUP_WEIGHTS):
+        model = model.to(device=device, dtype=dtype)
     target = 518 if img_size is None else \
         int(img_size[0] if hasattr(img_size, "__len__") else img_size)
     infer = functools.partial(da.infer, compute_dtype=dtype, target=target)

@@ -11,7 +11,10 @@ Frames arrive in batches from the background decoder thread; the step moves a
 uint8 batch to the model's device, runs infer + the normalize/heatmap
 epilogue there, eagerly (over several cards: one replica and one slice of
 the batch a card, `parallel.mesh`), and returns host numpy; the x264 encode
-runs on the writer's background thread while the next batch computes.
+runs on the writer's background thread while the next batch computes. The
+step opens the spans of `runtime.profiling`: `prisma.step` and in it
+`prisma.step.inputs`, `.model`, `.epilogue` and `.outputs` (on the split
+path the first three again for each replica, from the caller's thread).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.io.writers import write_csv, write_depth, write_pcl
 from prisma_tpu_torch.ops import encode as enc
 from prisma_tpu_torch.parallel import mesh
+from prisma_tpu_torch.runtime.profiling import StageProfiler, span
 
 # A video step: (frames_u8 [B, H, W, 3], idx0 = the global index of
 #   frames[0]) -> dict of host arrays with 'heat' [B, H, W, 3] u8, 'min' [B],
@@ -57,11 +61,15 @@ def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
         raise ValueError("devices= splits the frames of a fused step only")
     replicas = mesh.replicate(model, devices) if devices else None
 
-    def run(m: torch.nn.Module, frames: torch.Tensor, idx0: int) -> dict:
-        """The step on m's device -> device tensors (no wait)."""
-        x = frames.to(next(m.parameters()).device)
-        depth = infer(m, x) if fused else infer(m, x, idx0)
-        heat, dmin, dmax = enc.depth_heat(depth, flip)
+    def run(m: torch.nn.Module, frames, idx0: int) -> dict:
+        """The step on m's device (host frames, an array or a tensor) ->
+        device tensors (no wait)."""
+        with span("prisma.step.inputs"):
+            x = torch.as_tensor(frames).to(next(m.parameters()).device)
+        with span("prisma.step.model"):
+            depth = infer(m, x) if fused else infer(m, x, idx0)
+        with span("prisma.step.epilogue"):
+            heat, dmin, dmax = enc.depth_heat(depth, flip)
         out = {"heat": heat, "min": dmin, "max": dmax}
         if need_depth:
             out["depth"] = depth
@@ -69,14 +77,22 @@ def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
 
     @torch.inference_mode()
     def step(frames: np.ndarray, idx0: int = 0) -> dict:
-        x = torch.from_numpy(np.ascontiguousarray(frames))
-        if replicas is None:
-            return {k: v.cpu().numpy() for k, v in run(model, x, idx0).items()}
-        chunks = mesh.pad_to_devices(x, len(replicas)).chunk(len(replicas))
-        outs = mesh.run_replicas(run, devices, [
-            (m, c, idx0) for m, c in zip(replicas, chunks)])
-        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:len(x)]
-                for k in outs[0]}
+        with span("prisma.step"):
+            frames = np.ascontiguousarray(frames)
+            if replicas is None:
+                out = run(model, frames, idx0)
+                with span("prisma.step.outputs"):
+                    return {k: v.cpu().numpy() for k, v in out.items()}
+            with span("prisma.step.inputs"):
+                chunks = mesh.pad_to_devices(
+                    torch.from_numpy(frames),
+                    len(replicas)).chunk(len(replicas))
+            outs = mesh.run_replicas(run, devices, [
+                (m, c, idx0) for m, c in zip(replicas, chunks)])
+            with span("prisma.step.outputs"):
+                return {k: np.concatenate([o[k].cpu().numpy()
+                                           for o in outs])[:len(frames)]
+                        for k in outs[0]}
 
     return step
 
@@ -199,7 +215,6 @@ class DepthVideoSink:
 
 def run_video(io: BandIO, step: VideoStep, flip: bool,
               npy: bool = False) -> None:
-    from prisma_tpu_torch.runtime.profiling import StageProfiler
     prof = StageProfiler()
     reader = VideoReader(io.input)
     sink = DepthVideoSink(io, reader.width, reader.height, reader.fps,
@@ -207,11 +222,13 @@ def run_video(io: BandIO, step: VideoStep, flip: bool,
     reader.skip(sink.start)
 
     prof.start_device_trace()
-    for frames, valid in reader.batches(io.runtime.batch_size,
-                                        pad_to_full=True):
-        with prof.stage("device_step"):
+    for frames, valid in prof.iterate(
+            reader.batches(io.runtime.batch_size, pad_to_full=True),
+            "prisma.decode_wait"):
+        with prof.host("prisma.step"):
             out = step(frames, idx0=sink.idx)
-        sink.emit(out, valid)
+        with prof.stage("prisma.sink"):
+            sink.emit(out, valid)
     n_done = sink.idx - sink.start
     sink.close()
     reader.close()

@@ -10,7 +10,9 @@ The model-specific part is `infer_pairs(model, img1, img2)`; the step moves
 a uint8 frame window [T+1, H, W, 3] to the model's device, runs the resize,
 the model and the HSV/consistency epilogues there, eagerly (over several
 cards: one replica and one run of the window a card, `parallel.mesh`), and
-returns host numpy per pair.
+returns host numpy per pair, under the spans of `runtime.profiling`
+(`prisma.step`; in it `prisma.step.inputs`, `.model`, `.epilogue`, `.outputs`,
+the first three once a replica on the split path).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from prisma_tpu_torch.ops.flow import compute_fwdbwd_mask
 from prisma_tpu_torch.ops.resize import resize2d
 from prisma_tpu_torch.parallel import mesh
 from prisma_tpu_torch.runtime.config import RuntimeConfig
+from prisma_tpu_torch.runtime.profiling import (SETUP_WEIGHTS, StageProfiler,
+                                                span, timed)
 
 
 def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
@@ -54,19 +58,24 @@ def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
     replicas = mesh.replicate(model, devices) if split > 1 else None
 
     def run(m: torch.nn.Module, frames_u8: np.ndarray) -> dict:
-        frames = torch.from_numpy(frames_u8).to(next(m.parameters()).device)
-        ds = resize2d(frames.float(), (dh, dw), method="cubic").to(dtype)
-        fwd, bwd = infer_pairs(m, ds[:-1], ds[1:])
-        fwd = fwd.float()
-        bwd = bwd.float()
-        fwd_rgb, fwd_max = enc.process_flow(fwd)
-        out = {"fwd_rgb": fwd_rgb, "max_disp": fwd_max}
-        if need_masks or need_flow:
-            out["fwd"] = fwd
-            out["bwd"] = bwd
-            out["bwd_rgb"] = enc.process_flow(bwd)[0]
-        if need_masks:
-            out["fwd_mask"], out["bwd_mask"] = compute_fwdbwd_mask(fwd, bwd)
+        with span("prisma.step.inputs"):
+            frames = torch.from_numpy(frames_u8).to(
+                next(m.parameters()).device)
+        with span("prisma.step.model"):
+            ds = resize2d(frames.float(), (dh, dw), method="cubic").to(dtype)
+            fwd, bwd = infer_pairs(m, ds[:-1], ds[1:])
+        with span("prisma.step.epilogue"):
+            fwd = fwd.float()
+            bwd = bwd.float()
+            fwd_rgb, fwd_max = enc.process_flow(fwd)
+            out = {"fwd_rgb": fwd_rgb, "max_disp": fwd_max}
+            if need_masks or need_flow:
+                out["fwd"] = fwd
+                out["bwd"] = bwd
+                out["bwd_rgb"] = enc.process_flow(bwd)[0]
+            if need_masks:
+                out["fwd_mask"], out["bwd_mask"] = compute_fwdbwd_mask(fwd,
+                                                                       bwd)
         return out
 
     def host(out: dict) -> dict:
@@ -79,17 +88,22 @@ def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
 
     @torch.inference_mode()
     def step(frames_u8: np.ndarray) -> dict:
-        frames_u8 = np.ascontiguousarray(frames_u8)
-        n = frames_u8.shape[0]
-        if split == 1 or n % split:
-            return host(run(model, frames_u8))
-        k = n // split
-        work = [(m, frames_u8[i * k:(i + 1) * k + 1])
-                for i, m in enumerate(replicas)]
-        work = [(m, f) for m, f in work if len(f) > 1]
-        outs = [host(o) for o in mesh.run_replicas(run, devices[:len(work)],
-                                                    work)]
-        return {key: np.concatenate([o[key] for o in outs]) for key in outs[0]}
+        with span("prisma.step"):
+            frames_u8 = np.ascontiguousarray(frames_u8)
+            n = frames_u8.shape[0]
+            if split == 1 or n % split:
+                out = run(model, frames_u8)
+                with span("prisma.step.outputs"):
+                    return host(out)
+            k = n // split
+            work = [(m, frames_u8[i * k:(i + 1) * k + 1])
+                    for i, m in enumerate(replicas)]
+            work = [(m, f) for m, f in work if len(f) > 1]
+            outs = mesh.run_replicas(run, devices[:len(work)], work)
+            with span("prisma.step.outputs"):
+                outs = [host(o) for o in outs]
+                return {key: np.concatenate([o[key] for o in outs])
+                        for key in outs[0]}
 
     return step
 
@@ -316,8 +330,9 @@ def build_flow_step(model: torch.nn.Module, infer_pairs: Callable,
     16-bit PNGs). The HSV and consistency epilogues run in f32 (the step
     casts the flows back)."""
     dh, dw = int(round(H * scale)), int(round(W * scale))
-    model = model.to(device=runtime.resolve_device(),
-                     dtype=runtime.resolve_dtype())
+    with timed(SETUP_WEIGHTS):
+        model = model.to(device=runtime.resolve_device(),
+                         dtype=runtime.resolve_dtype())
     return make_flow_step(model, infer_pairs, (dh, dw), mask or enc,
                           flo or backwards, need_enc=enc)
 
@@ -346,19 +361,30 @@ def run_flow_band(band: str, input_path: str, model, infer_pairs: Callable,
 
     pairs_per_batch = max(1, runtime.batch_size - 1)
     reader.skip(sink.start)
+    prof = StageProfiler()
 
+    def emit(window, n_pairs):
+        with prof.host("prisma.step"):
+            out = step(np.stack(window))
+        with prof.stage("prisma.sink"):
+            sink.emit(out, n_pairs)
+
+    prof.start_device_trace()
     window: list[np.ndarray] = []
-    for frame in reader:
+    for frame in prof.iterate(reader, "prisma.decode_wait"):
         window.append(frame)
         if len(window) == pairs_per_batch + 1:
-            sink.emit(step(np.stack(window)), pairs_per_batch)
+            emit(window, pairs_per_batch)
             window = window[-1:]
     if len(window) > 1:
         n_pairs = len(window) - 1
         while len(window) < pairs_per_batch + 1:
             window.append(window[-1])
-        sink.emit(step(np.stack(window)), n_pairs)
+        emit(window, n_pairs)
 
+    n_done = sink.idx - sink.start
     sink.close()
     reader.close()
+    prof.stop_device_trace()
+    prof.report(items=n_done)
     return io

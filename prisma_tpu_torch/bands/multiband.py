@@ -27,6 +27,7 @@ import torch
 from prisma_tpu_torch.bands.base import BAND_MODULES, resolve
 from prisma_tpu_torch.io.video import VideoReader
 from prisma_tpu_torch.runtime.config import RuntimeConfig
+from prisma_tpu_torch.runtime.profiling import StageProfiler
 
 # the video depth bands whose step is one model call (depth_base.make_step),
 # as the JAX package fuses them; marigold and patchfusion run after the
@@ -199,23 +200,36 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
 
     # the fused loop: all three steps for a batch, then each band's sink
     reader.skip(global_start)
+    prof = StageProfiler()
+
+    def run_step(step, x):
+        with prof.host("prisma.step"):
+            return step(x)
+
+    prof.start_device_trace()
+    frames_done = 0
     flow_buf: list[np.ndarray] = []
-    for frames, valid in reader.batches(B, pad_to_full=True):
-        mask_out = mask_step(frames) if mask_step is not None else None
-        depth_out = depth_step(frames) if depth_step is not None else None
+    for frames, valid in prof.iterate(reader.batches(B, pad_to_full=True),
+                                      "prisma.decode_wait"):
+        mask_out = run_step(mask_step, frames) if mask_step is not None \
+            else None
+        depth_out = run_step(depth_step, frames) if depth_step is not None \
+            else None
         flow_outs = []
         if flow_step is not None:
             flow_buf.extend(frames[:valid])
             while len(flow_buf) >= win:
                 window = np.stack(flow_buf[:win])
                 flow_buf = flow_buf[win - 1:]
-                flow_outs.append(flow_step(window))
-        if mask_out is not None:
-            sinks["mask"].emit(mask_out, valid)
-        if depth_out is not None:
-            sinks["depth"].emit(depth_out, valid)
-        for out in flow_outs:
-            sinks["flow"].emit(out, win - 1)
+                flow_outs.append(run_step(flow_step, window))
+        with prof.stage("prisma.sink"):
+            if mask_out is not None:
+                sinks["mask"].emit(mask_out, valid)
+            if depth_out is not None:
+                sinks["depth"].emit(depth_out, valid)
+            for out in flow_outs:
+                sinks["flow"].emit(out, win - 1)
+        frames_done += valid
 
     # flow tail: a short final window pads by repeating the last frame (the
     # grouping of flow_base.run_flow_band)
@@ -223,7 +237,9 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
         n_pairs = len(flow_buf) - 1
         while len(flow_buf) < win:
             flow_buf.append(flow_buf[-1])
-        sinks["flow"].emit(flow_step(np.stack(flow_buf)), n_pairs)
+        out = run_step(flow_step, np.stack(flow_buf))
+        with prof.stage("prisma.sink"):
+            sinks["flow"].emit(out, n_pairs)
 
     if "mask" in sinks:
         sinks["mask"].close()
@@ -233,4 +249,6 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
     if "flow" in sinks:
         sinks["flow"].close()
     reader.close()
+    prof.stop_device_trace()
+    prof.report(items=frames_done)
     return ran

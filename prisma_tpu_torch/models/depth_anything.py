@@ -5,6 +5,8 @@ The module's parameter names are the checkpoint's (`pretrained.*`,
 `depth_head.*`). The public functions keep the JAX layout at their boundary:
 `forward` takes a prepared [B, H, W, 3] image, `infer` and
 `infer_video_batch` take uint8 frames [B, H, W, 3]; the module runs NCHW.
+`infer` opens the spans `prisma.model.prepare`, `.encoder` (the ViT),
+`.head` (DPT, with its resize to the input size) and `.resize_back`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 from prisma_tpu_torch.models import dpt, vit
 from prisma_tpu_torch.ops import encode as enc
 from prisma_tpu_torch.ops.resize import dpt_input_size, resize2d_nchw
+from prisma_tpu_torch.runtime.profiling import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -33,11 +36,13 @@ class DepthAnything(nn.Module):
         cfg = self.pretrained.cfg
         H, W = x.shape[-2:]
         ph, pw = H // cfg.patch_size, W // cfg.patch_size
-        feats = vit.get_intermediate_layers(self.pretrained, x, n=4)
-        depth = dpt.dpt_head(self.depth_head, feats, ph, pw)
-        depth = resize2d_nchw(depth[:, None], (H, W), method="linear",
-                              align_corners=True)[:, 0]
-        return F.relu(depth)
+        with span("prisma.model.encoder"):
+            feats = vit.get_intermediate_layers(self.pretrained, x, n=4)
+        with span("prisma.model.head"):
+            depth = dpt.dpt_head(self.depth_head, feats, ph, pw)
+            depth = resize2d_nchw(depth[:, None], (H, W), method="linear",
+                                  align_corners=True)[:, 0]
+            return F.relu(depth)
 
 
 def build(cfg: vit.ViTConfig, features: int = 256,
@@ -106,10 +111,13 @@ def infer(model: DepthAnything, frames_u8: torch.Tensor,
     target: ViT input budget (lower_bound resize target, default 518).
     """
     H, W = frames_u8.shape[1:3]
-    depth = model(prepare(frames_u8, compute_dtype, target))
-    depth = resize2d_nchw(depth[:, None], (H, W), method="linear",
-                          align_corners=False)[:, 0]
-    return depth.float()
+    with span("prisma.model.prepare"):
+        img = prepare(frames_u8, compute_dtype, target)
+    depth = model(img)
+    with span("prisma.model.resize_back"):
+        depth = resize2d_nchw(depth[:, None], (H, W), method="linear",
+                              align_corners=False)[:, 0]
+        return depth.float()
 
 
 def infer_video_batch(model: DepthAnything, frames_u8: torch.Tensor,

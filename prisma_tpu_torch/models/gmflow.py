@@ -26,7 +26,9 @@ runs NCHW. The kernels carry the model on a CUDA device:
   (`flash_attention_streamed`), with f32 values.
 On the CPU each wrapper takes its plain version. The refinement's warp,
 local matching and local propagation are plain torch, as the JAX package
-computes them outside any Pallas kernel.
+computes them outside any Pallas kernel. `forward` opens the spans
+`prisma.model.backbone`, then for each scale `.transformer` (with the
+refinement's warp), `.matching` and `.propagation`, then `.upsample`.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from prisma_tpu_torch.ops.cuda.flash_attention import (flash_attention,
                                                        flash_attention_streamed)
 from prisma_tpu_torch.ops.cuda.instance_norm import instance_norm_relu
 from prisma_tpu_torch.ops.resize import resize2d
+from prisma_tpu_torch.runtime.profiling import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -573,52 +576,60 @@ def forward(model: GMFlow, img0: torch.Tensor, img1: torch.Tensor,
     upsampled x2, and the flow is refined by local matching and local
     propagation before the convex x4 upsample."""
     cfg = model.cfg
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img0.dtype, device=img0.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img0.dtype, device=img0.device)
-    n0 = (img0 / 255.0 - mean) / std
-    n1 = (img1 / 255.0 - mean) / std
-
     B = img0.shape[0]
-    x = torch.cat([n0, n1]).permute(0, 3, 1, 2).contiguous()
-    feats = backbone_forward(model.backbone, x)
+    with span("prisma.model.backbone"):  # with the normalisation
+        mean = torch.tensor(IMAGENET_MEAN, dtype=img0.dtype,
+                            device=img0.device)
+        std = torch.tensor(IMAGENET_STD, dtype=img0.dtype, device=img0.device)
+        n0 = (img0 / 255.0 - mean) / std
+        n1 = (img1 / 255.0 - mean) / std
+        x = torch.cat([n0, n1]).permute(0, 3, 1, 2).contiguous()
+        feats = backbone_forward(model.backbone, x)
     if cfg.num_scales == 1:
         feats = [feats]
     splits_l, corr_l, prop_l = cfg.scale_lists()
     flow = None
     for si, feats_s in enumerate(feats):
-        feats_s = feats_s.permute(0, 2, 3, 1)
-        feature0, feature1 = feats_s[:B], feats_s[B:]
-        if si > 0:
-            if pred_bidir:
-                feature0, feature1 = (torch.cat([feature0, feature1]),
-                                      torch.cat([feature1, feature0]))
-            flow = (resize2d(flow.float(), feature0.shape[1:3],
-                             method="linear", align_corners=True)
-                    * 2.0).to(feature0.dtype)
-            feature1 = _flow_warp(feature1, flow)
-        feature0, feature1 = add_position(feature0, feature1, splits_l[si])
-        feature0, feature1 = transformer_forward(model.transformer, feature0,
-                                                 feature1, splits_l[si])
-        if corr_l[si] == -1:
-            flow_pred = global_correlation_softmax(
-                feature0, feature1, pred_bidir and si == 0).to(feature0.dtype)
-        else:
-            flow_pred = local_correlation_softmax(feature0, feature1,
-                                                  corr_l[si])
-        flow = flow_pred if flow is None else flow + flow_pred
-        if pred_bidir and si == 0:
-            feature0 = torch.cat([feature0, feature1])
-        if prop_l[si] == -1:
-            flow = flow_propagation(model.feature_flow_attn, feature0, flow)
-        else:
-            flow = flow_propagation_local(model.feature_flow_attn, feature0,
-                                          flow, prop_l[si])
+        with span("prisma.model.transformer"):  # the warp of a refinement too
+            feats_s = feats_s.permute(0, 2, 3, 1)
+            feature0, feature1 = feats_s[:B], feats_s[B:]
+            if si > 0:
+                if pred_bidir:
+                    feature0, feature1 = (torch.cat([feature0, feature1]),
+                                          torch.cat([feature1, feature0]))
+                flow = (resize2d(flow.float(), feature0.shape[1:3],
+                                 method="linear", align_corners=True)
+                        * 2.0).to(feature0.dtype)
+                feature1 = _flow_warp(feature1, flow)
+            feature0, feature1 = add_position(feature0, feature1,
+                                              splits_l[si])
+            feature0, feature1 = transformer_forward(
+                model.transformer, feature0, feature1, splits_l[si])
+        with span("prisma.model.matching"):
+            if corr_l[si] == -1:
+                flow_pred = global_correlation_softmax(
+                    feature0, feature1,
+                    pred_bidir and si == 0).to(feature0.dtype)
+            else:
+                flow_pred = local_correlation_softmax(feature0, feature1,
+                                                      corr_l[si])
+            flow = flow_pred if flow is None else flow + flow_pred
+        with span("prisma.model.propagation"):
+            if pred_bidir and si == 0:
+                feature0 = torch.cat([feature0, feature1])
+            if prop_l[si] == -1:
+                flow = flow_propagation(model.feature_flow_attn, feature0,
+                                        flow)
+            else:
+                flow = flow_propagation_local(model.feature_flow_attn,
+                                              feature0, flow, prop_l[si])
 
-    concat = torch.cat([flow.to(feature0.dtype), feature0], dim=-1)
-    y = F.relu(pnn.conv2d(model.upsampler[0], concat.permute(0, 3, 1, 2),
-                          padding=1))
-    mask = pnn.conv2d(model.upsampler[2], y).permute(0, 2, 3, 1)
-    return convex_upsample(flow, mask, cfg.upsample_factor)
+    with span("prisma.model.upsample"):
+        concat = torch.cat([flow.to(feature0.dtype), feature0], dim=-1)
+        y = F.relu(pnn.conv2d(model.upsampler[0], concat.permute(0, 3, 1, 2),
+                              padding=1))
+        mask = pnn.conv2d(model.upsampler[2], y).permute(0, 2, 3, 1)
+        return convex_upsample(flow, mask, cfg.upsample_factor)
 
 
 def infer_pairs(model: GMFlow, image1: torch.Tensor, image2: torch.Tensor,

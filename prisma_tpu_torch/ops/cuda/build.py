@@ -6,7 +6,9 @@ The hash covers the source, every header of `csrc/` it includes (`#include
 "..."`, followed through the headers) and the flags, so an edited source or
 header rebuilds and an unchanged one is reused. No PyTorch headers are involved: a build takes
 seconds, not the minutes of `torch.utils.cpp_extension`. `build_all` starts
-one nvcc per source, all at once, and waits for them together.
+one nvcc per source, all at once, and waits for them together. Both run
+under the set-up span `prisma.setup.build_kernels`; BUILT and CACHED count,
+per library, the nvcc builds and the up-to-date builds found on disk.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
+
+from prisma_tpu_torch.runtime.profiling import timed
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -29,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+BUILT: Counter = Counter()
+CACHED: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -74,6 +81,7 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
+@timed("prisma.setup.build_kernels")
 def build_all(names=None) -> dict[str, str]:
     """Compile csrc/<name>.cu for each name (default: every source) unless an
     up-to-date build exists, one nvcc process per source, all started
@@ -83,6 +91,7 @@ def build_all(names=None) -> dict[str, str]:
     names = sources() if names is None else list(names)
     out = {name: library_path(name) for name in names}
     todo = {name: path for name, path in out.items() if not os.path.exists(path)}
+    CACHED.update(name for name in out if name not in todo)
     if not todo:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -103,6 +112,7 @@ def build_all(names=None) -> dict[str, str]:
         with open(path + ".log", "w") as f:
             f.write(log)
         os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
+        BUILT[name] += 1
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
@@ -112,5 +122,6 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(build_all([name])[name])
+            with timed("prisma.setup.build_kernels"):
+                _libs[name] = ctypes.CDLL(build_all([name])[name])
         return _libs[name]

@@ -13,10 +13,16 @@ p49; depth_marigold one frame a step, 10 steps x 10 members at 768) and
 prints:
 
 - the host-clock time of whole steps (H2D and D2H included);
-- the device time of each stage on a batch already on the card, from CUDA
-  events (depth_anything: input resize + normalize, ViT, DPT head, resize
-  back, heat; depth_anything_metric: the same stages with the bins head
-  (f32) and the antialiased bicubic back to 1080p; depth_zoedepth: the
+- for depth_anything and flow_gmflow, the device time of each stage of
+  the profiled steps, from the step's spans (`runtime.profiling`: the
+  kernels and copies launched inside `prisma.step.inputs`, `.model`,
+  `.epilogue`, `.outputs`, and the model's `prisma.model.*` ranges:
+  depth_anything prepare, encoder, head, resize_back; flow_gmflow
+  backbone, transformer, matching, propagation, upsample);
+- for the other bands, the device time of each stage on a batch already on
+  the card, from CUDA events (depth_anything_metric: the input resize +
+  normalize, the ViT-L core, the DPT head with features, the bins head
+  (f32), the antialiased bicubic back to 1080p, the heat; depth_zoedepth: the
   reflect pad, the BEiT-L core, the MiDaS decoder, the bins head (f32) and
   the bicubic back, each over both passes; depth_patchfusion: the coarse
   pass, then on one batch of 8 tiles the fine core, its projections, the
@@ -27,9 +33,7 @@ prints:
   and all 10, the VAE decode, the ensembling (BFGS, medians), the epilogue,
   the whole frame; mask: preprocess,
   ResNet-101, FPN, head, the eight frames' slabs (top-K, dynamic convs,
-  matrix NMS, the upsample to 1080p), composite and SDF; flow_gmflow: input
-  resize, backbone, transformer, global
-  matching, propagation, upsampler, the HSV and consistency epilogue;
+  matrix NMS, the upsample to 1080p), composite and SDF;
   flow_gmflow_refine: input resize, the 2-scale backbone, the 1/8 scale's
   transformer, matching and propagation, the flow upsample and warp, the
   1/4 scale's transformer, local matching and local propagation, upsampler
@@ -98,31 +102,14 @@ def kernel_family(name: str) -> str:
 
 
 def depth_anything_step(runtime: RuntimeConfig, frames: np.ndarray):
-    """-> (step, {stage: device ms on the batch already on the card})."""
+    """-> (step, None): the stages come from the step's spans."""
     from prisma_tpu_torch.bands import depth_anything_band, depth_base
-    from prisma_tpu_torch.models import depth_anything as da
-    from prisma_tpu_torch.models import vit
-    from prisma_tpu_torch.ops import encode as enc
 
     model, infer, flip = depth_anything_band.build_infer(runtime,
                                                          encoder="vitl")
     step = depth_base.make_step(model, infer, flip, need_depth=False)
     step(frames)  # warm-up: builds the kernel, cuDNN and cuBLAS choices
-    dtype = runtime.resolve_dtype()
-    x = torch.from_numpy(frames).cuda()
-    with torch.inference_mode():
-        img = da.prepare(x, dtype)
-        depth = infer(model, x)
-        t = {"prepare": cuda_ms(lambda: da.prepare(x, dtype)),
-             "vit": cuda_ms(lambda: vit.get_intermediate_layers(
-                 model.pretrained, img, n=4)),
-             "model": cuda_ms(lambda: model(img)),
-             "infer": cuda_ms(lambda: infer(model, x)),
-             "heat": cuda_ms(lambda: enc.depth_heat(depth, flip))}
-    return step, {"input resize + normalize": t["prepare"], "ViT-L": t["vit"],
-                  "DPT head": t["model"] - t["vit"],
-                  "resize back": t["infer"] - t["prepare"] - t["model"],
-                  "heat epilogue": t["heat"]}
+    return step, None
 
 
 def depth_anything_metric_step(runtime: RuntimeConfig, frames: np.ndarray):
@@ -423,39 +410,16 @@ def _rest_of_infer(stages: dict, total: float) -> dict:
 
 
 def flow_gmflow_step(runtime: RuntimeConfig, frames: np.ndarray):
-    """-> (step, {stage: device ms on the window already on the card}): the
-    band's step over 7 bidirectional pairs with masks and flows returned."""
-    from prisma_tpu_torch.models import gmflow as gm
+    """-> (step, None): the band's step over 7 bidirectional pairs with
+    masks and flows returned; the stages come from the step's spans."""
+    from prisma_tpu_torch.bands import flow_base, flow_gmflow_band
 
-    model, infer, step, (x, ds, xin, B), (resize, upsample, epilogue) = \
-        _gmflow_setup(runtime, frames, gm.GMFlowConfig())
-    cfg = model.cfg
-    dtype = runtime.resolve_dtype()
-    with torch.inference_mode():
-        feats = gm.backbone_forward(model.backbone, xin).permute(0, 2, 3, 1)
-        f0, f1 = gm.add_position(feats[:B], feats[B:], cfg.attn_splits)
-        t0, t1 = gm.transformer_forward(model.transformer, f0, f1,
-                                        cfg.attn_splits)
-        flow = gm.global_correlation_softmax(t0, t1, True).to(dtype)
-        both = torch.cat([t0, t1])
-        prop = gm.flow_propagation(model.feature_flow_attn, both, flow)
-        stages = {
-            "input resize (cubic, f32)": cuda_ms(resize),
-            "backbone (convs + 15 K4)": cuda_ms(
-                lambda: gm.backbone_forward(model.backbone, xin)),
-            "transformer (6 K1 + 6 K2)": cuda_ms(
-                lambda: gm.transformer_forward(model.transformer, f0, f1,
-                                               cfg.attn_splits)),
-            "global matching (2 K3)": cuda_ms(
-                lambda: gm.global_correlation_softmax(t0, t1, True)),
-            "propagation (1 K3)": cuda_ms(
-                lambda: gm.flow_propagation(model.feature_flow_attn, both,
-                                            flow)),
-            "upsampler + convex x8": cuda_ms(lambda: upsample(prop, both)),
-            "HSV + consistency epilogue": cuda_ms(epilogue),
-        }
-        total = cuda_ms(lambda: infer(model, ds[:-1], ds[1:]))
-    return step, _rest_of_infer(stages, total)
+    lazy_model, infer = flow_gmflow_band.build_pairs(runtime)
+    H, W = frames.shape[1:3]
+    step = flow_base.build_flow_step(lazy_model(), infer, FLOW_SCALE, W, H,
+                                     runtime, backwards=True, mask=True)
+    step(frames)  # warm-up
+    return step, None
 
 
 def flow_gmflow_refine_step(runtime: RuntimeConfig, frames: np.ndarray):
@@ -698,6 +662,58 @@ def depth_marigold_step(runtime: RuntimeConfig, frames: np.ndarray):
             - t["ensemble"] - t["epilogue"]}
 
 
+def span_stages(prof, steps: int) -> tuple[dict, float]:
+    """({prisma.* range: device ms a step}, all device ms a step) of a
+    profile: each kernel, copy and set on the card goes to every prisma.*
+    range open on its launching thread when the CUDA runtime or driver call
+    of its correlation id was made. (key_averages() puts a kernel under the
+    torch operator that launched it, and so misses the port's kernels,
+    launched through ctypes outside any operator.)"""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    ranges = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id())
+              for e in events
+              if e.device_type() == cpu and e.name().startswith("prisma.")]
+    launches = {e.correlation_id(): (e.start_ns(), e.start_thread_id())
+                for e in events
+                if e.device_type() == cpu and e.name().startswith("cu")}
+    out: dict[str, float] = {}
+    total = 0.0
+    for e in events:
+        if e.device_type() != cuda or e.is_user_annotation() \
+                or e.name().startswith("prisma."):
+            continue
+        ms = (e.end_ns() - e.start_ns()) / 1e6 / steps
+        total += ms
+        if e.correlation_id() not in launches:
+            continue
+        t, thread = launches[e.correlation_id()]
+        for name, start, end, th in ranges:
+            if th == thread and start <= t <= end:
+                out[name] = out.get(name, 0.0) + ms
+    return out, total
+
+
+def print_span_stages(prof, steps: int) -> None:
+    """The step's stages from its spans, the model's ranges under
+    prisma.step.model, and the stages' sum against the device time."""
+    ms, device = span_stages(prof, steps)
+    stages = [k for k in ("prisma.step.inputs", "prisma.step.model",
+                          "prisma.step.epilogue", "prisma.step.outputs")
+              if k in ms]
+    print("stages from the step's spans (device time launched in each, per "
+          "step):")
+    for k in stages:
+        print(f"  {k:<42} {ms[k]:8.2f} ms")
+        if k == "prisma.step.model":
+            for m in sorted(n for n in ms if n.startswith("prisma.model.")):
+                print(f"    {m:<40} {ms[m]:8.2f} ms")
+    total = sum(ms[k] for k in stages)
+    print(f"  the stages together {total:.2f} ms; prisma.step "
+          f"{ms.get('prisma.step', 0.0):.2f} ms; the profile's device time "
+          f"{device:.2f} ms ({100 * total / device:.1f}%)")
+
+
 # band: (step builder, unit, items a step)
 STEPS = {"depth_anything": (depth_anything_step, "frames", BATCH),
          "depth_anything_metric": (depth_anything_metric_step, "frames", BATCH),
@@ -741,8 +757,9 @@ def main(argv=None):
           f"{items} {unit}: " + ", ".join(f"{t:.2f}" for t in times)
           + f" ms; mean {np.mean(times):.2f} ms "
           f"({items * 1e3 / np.mean(times):.2f} {unit}/s)")
-    print("stages on a batch already on the card (CUDA events): "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    if stages is not None:
+        print("stages on a batch already on the card (CUDA events): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -753,7 +770,8 @@ def main(argv=None):
         host_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     groups: dict[str, float] = {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key.startswith("prisma."):  # a span's annotation
             continue
         ms = evt.self_device_time_total / 1e3 / args.steps
         fam = kernel_family(evt.key)
@@ -764,6 +782,8 @@ def main(argv=None):
           f"({100 * busy / host_ms:.1f}% busy)")
     for fam, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:<42} {ms:8.2f} ms  {100 * ms / busy:5.1f}%")
+    if stages is None:
+        print_span_stages(prof, args.steps)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

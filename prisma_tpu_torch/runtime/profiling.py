@@ -1,16 +1,30 @@
-"""Per-stage pipeline profiling (counterpart of prisma_tpu/runtime/profiling.py).
+"""Spans and per-stage profiling (counterpart of
+prisma_tpu/runtime/profiling.py).
 
 Usage:
+    with span("prisma.step.model"):      # a range on torch.profiler's trace
+        ...
+    with timed("prisma.setup.weights"):  # the same, and host seconds kept
+        ...                              # in setup_seconds()
     prof = StageProfiler(enabled=True)
-    with prof.stage("decode"):
+    with prof.stage("prisma.sink"):
         ...
     prof.report()  # prints per-stage totals, means, throughput
 
-Set PRISMA_TPU_PROFILE=1 to enable in the band drivers. A stage measures host
-time; the band's device step ends in a host copy, so it includes device time.
-PRISMA_TPU_TRACE=<dir> additionally records a torch.profiler trace (CPU and,
-with a card, CUDA activities) between start_device_trace and
-stop_device_trace, written into <dir> as a Chrome trace when it stops.
+`span(name)` opens a `torch.profiler.record_function` only while a profiler
+records on this thread, so its ranges sit on the profiler's clock beside the
+CUDA activity they launch; otherwise it is a shared null context and costs
+one flag read. The band steps open `prisma.step` once a call and, inside it,
+`prisma.step.inputs`, `.model`, `.epilogue` and `.outputs`; the models open
+`prisma.model.*` ranges under `.model`; the run loops open
+`prisma.decode_wait` and `prisma.sink`.
+
+Set PRISMA_TPU_PROFILE=1 to enable a StageProfiler's host totals in the band
+drivers. A stage measures host time; the band's device step ends in a host
+copy, so it includes device time. PRISMA_TPU_TRACE=<dir> additionally
+records a torch.profiler trace (CPU and, with a card, CUDA activities)
+between start_device_trace and stop_device_trace, written into <dir> as a
+Chrome trace when it stops.
 """
 
 from __future__ import annotations
@@ -18,7 +32,49 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
+
+import torch
+
+# the set-up span of a band's weights: the loaders of weights/store.py (the
+# checkpoint read or the random init, the strict load) and the bands' cast
+# and move to the card
+SETUP_WEIGHTS = "prisma.setup.weights"
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+_SETUP: dict[str, float] = defaultdict(float)
+_OPEN: Counter = Counter()
+_END = object()
+
+
+def span(name: str):
+    """A range `name` on the running profiler's trace; a null context when
+    none records."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """A set-up span: `span(name)`, and its host seconds added to
+    setup_seconds()[name] whether a profiler runs or not (a span nested in
+    another of the same name adds nothing of its own). Also a decorator."""
+    _OPEN[name] += 1
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        _OPEN[name] -= 1
+        if not _OPEN[name]:
+            _SETUP[name] += time.perf_counter() - t0
+
+
+def setup_seconds() -> dict[str, float]:
+    """{set-up span: host seconds} over this process's `timed` spans."""
+    return dict(_SETUP)
 
 
 class StageProfiler:
@@ -32,7 +88,9 @@ class StageProfiler:
         self._trace = None
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def host(self, name: str):
+        """The host seconds of the block added to stage `name` when enabled,
+        with no span (for a call that opens its own, as a band step does)."""
         if not self.enabled:
             yield
             return
@@ -43,11 +101,26 @@ class StageProfiler:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """`span(name)` and the host totals of `host(name)`."""
+        with span(name), self.host(name):
+            yield
+
+    def iterate(self, items, name: str):
+        """items, each one's wait (its next()) timed as stage `name`."""
+        it = iter(items)
+        while True:
+            with self.stage(name):
+                item = next(it, _END)
+            if item is _END:
+                return
+            yield item
+
     def start_device_trace(self) -> None:
         """Start the torch.profiler trace if PRISMA_TPU_TRACE names a
         directory and none is running."""
         if self._trace_dir and self._trace is None:
-            import torch
             from torch.profiler import ProfilerActivity, profile
             activities = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
@@ -75,11 +148,23 @@ class StageProfiler:
         total = sum(self.totals.values())
         for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
             n = self.counts[name]
-            line = (f"  {name:<12} {t:8.3f}s total  {t / max(n, 1) * 1000:8.2f}ms/call"
-                    f"  x{n}  ({t / total * 100:5.1f}%)")
-            lines.append(line)
+            lines.append(f"  {name:<26} {t:8.3f}s total  "
+                         f"{t / max(n, 1) * 1000:8.2f}ms/call  x{n}  "
+                         f"({t / total * 100:5.1f}%)")
         if items:
-            lines.append(f"  throughput   {items / total:8.2f} items/s over {items}")
+            lines.append(f"  {'throughput':<26} {items / total:8.2f} items/s "
+                         f"over {items}")
+        for name, t in sorted(_SETUP.items()):
+            lines.append(f"  {name:<26} {t:8.3f}s set-up")
+        from prisma_tpu_torch.ops.cuda import build
+        if build.BUILT or build.CACHED:
+            lines.append("  kernels: nvcc builds "
+                         + _counted(build.BUILT) + "; cache loads "
+                         + _counted(build.CACHED))
         out = "\n".join(lines)
         print(out)
         return out
+
+
+def _counted(counter: Counter) -> str:
+    return ", ".join(f"{k} x{n}" for k, n in sorted(counter.items())) or "none"

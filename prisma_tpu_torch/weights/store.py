@@ -23,6 +23,9 @@ torch.Generator instead: same shapes, no files needed (the BEiT depth of
 ZoeD_N from PRISMA_ZOED_DEPTH, PatchFusion's BEiT depth and model size from
 PRISMA_PF_DEPTH and PRISMA_PF_SIZE, a tiny Marigold with
 PRISMA_MARIGOLD_TINY=1, as the JAX package's loaders read them).
+
+Every `load_*` runs under the set-up span `prisma.setup.weights`
+(`runtime.profiling.timed`).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from prisma_tpu_torch.models import zoed
 from prisma_tpu_torch.models import vit as pvit
 from prisma_tpu_torch.models import zoedepth as zoe
 from prisma_tpu_torch.runtime.config import RuntimeConfig
+from prisma_tpu_torch.runtime.profiling import SETUP_WEIGHTS, timed
 
 RANDOM_SEED = 0
 
@@ -95,6 +99,7 @@ def metric_depth_anything_from_state_dict(sd: dict, cfg: pvit.ViTConfig,
     return model
 
 
+@timed(SETUP_WEIGHTS)
 def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
                         metric: str = "none"):
     """-> (kind, model (f32, CPU), encoder) with kind "relative" or "metric".
@@ -131,6 +136,7 @@ def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
             encoder)
 
 
+@timed(SETUP_WEIGHTS)
 def load_gmflow(runtime: RuntimeConfig,
                 cfg: gm.GMFlowConfig | None = None) -> gm.GMFlow:
     """GMFlow, f32 on the CPU: random from the seed, or the reference
@@ -153,6 +159,7 @@ def load_gmflow(runtime: RuntimeConfig,
     return model
 
 
+@timed(SETUP_WEIGHTS)
 def load_raft(runtime: RuntimeConfig,
               cfg: raft.RAFTConfig | None = None) -> raft.RAFT:
     """RAFT, f32 on the CPU: random from the seed, or the reference
@@ -173,6 +180,7 @@ def load_raft(runtime: RuntimeConfig,
     return model
 
 
+@timed(SETUP_WEIGHTS)
 def load_solov2(runtime: RuntimeConfig,
                 cfg: solov2.SOLOv2Config | None = None) -> solov2.SOLOv2:
     """SOLOv2 R101, f32 on the CPU: random from the seed, or the mmdet
@@ -271,6 +279,7 @@ def patchfusion_from_state_dict(sd: dict, model_hw=pf.MODEL_HW,
     return _load_strict(model, _drop(sd, BEIT_UNREAD))
 
 
+@timed(SETUP_WEIGHTS)
 def load_zoed(runtime: RuntimeConfig) -> zoed.ZoeDepth:
     """ZoeD_N, f32 on the CPU: random from the seed (a BEiT-L of
     PRISMA_ZOED_DEPTH blocks, default 24), or `ZoeD_M12_N.pt` (reference
@@ -282,6 +291,7 @@ def load_zoed(runtime: RuntimeConfig) -> zoed.ZoeDepth:
     return zoed_from_state_dict(_checkpoint(runtime, "ZoeD_M12_N.pt"))
 
 
+@timed(SETUP_WEIGHTS)
 def load_patchfusion(runtime: RuntimeConfig):
     """-> (PatchFusion f32 on the CPU, model_hw): random from the seed (BEiT
     depth PRISMA_PF_DEPTH, default 24; model size PRISMA_PF_SIZE "h,w",
@@ -340,6 +350,7 @@ def midas2_from_state_dict(sd: dict, device="cpu") -> midas.MidasNet:
     return _load_strict(model, sd)
 
 
+@timed(SETUP_WEIGHTS)
 def load_midas(runtime: RuntimeConfig, model_version: str = "midas3"):
     """-> (arch, model f32 on the CPU) for any reference model_version:
     "v2" (MiDaS v2.1) for midas2 / midas2-small, "dpt" (DPT_Large) for
@@ -471,6 +482,7 @@ def marigold_from_snapshot(mdir: str, device="cpu") -> mg.Marigold:
     return mg.set_text_embed(model, text.to(device))
 
 
+@timed(SETUP_WEIGHTS)
 def load_marigold(runtime: RuntimeConfig, device="cpu") -> mg.Marigold:
     """Marigold, f32 on the CPU, its empty prompt's embedding made by the
     text tower on `device`: random from the seed (the tower too, at full
