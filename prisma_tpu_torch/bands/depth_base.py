@@ -10,7 +10,8 @@ Reference contract (bands/depth_anything.py:146-251, same for all depth bands):
 Frames arrive in batches from the background decoder thread; the step moves a
 uint8 batch to the model's device, runs infer + the normalize/heatmap
 epilogue there, eagerly (over several cards: one replica and one slice of
-the batch a card, `parallel.mesh`), and returns host numpy; the x264 encode
+the batch a card, `parallel.mesh`), and returns host numpy (both copies
+through `runtime.host_copy`: pinned on a card); the x264 encode
 runs on the writer's background thread while the next batch computes. The
 step opens the spans of `runtime.profiling`: `prisma.step` and in it
 `prisma.step.inputs`, `.model`, `.epilogue` and `.outputs` (on the split
@@ -31,6 +32,7 @@ from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.io.writers import write_csv, write_depth, write_pcl
 from prisma_tpu_torch.ops import encode as enc
 from prisma_tpu_torch.parallel import mesh
+from prisma_tpu_torch.runtime import host_copy
 from prisma_tpu_torch.runtime.profiling import StageProfiler, span
 
 # A video step: (frames_u8 [B, H, W, 3], idx0 = the global index of
@@ -65,7 +67,7 @@ def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
         """The step on m's device (host frames, an array or a tensor) ->
         device tensors (no wait)."""
         with span("prisma.step.inputs"):
-            x = torch.as_tensor(frames).to(next(m.parameters()).device)
+            x = host_copy.to_device(frames, next(m.parameters()).device)
         with span("prisma.step.model"):
             depth = infer(m, x) if fused else infer(m, x, idx0)
         with span("prisma.step.epilogue"):
@@ -82,7 +84,7 @@ def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
             if replicas is None:
                 out = run(model, frames, idx0)
                 with span("prisma.step.outputs"):
-                    return {k: v.cpu().numpy() for k, v in out.items()}
+                    return host_copy.to_host(out)
             with span("prisma.step.inputs"):
                 chunks = mesh.pad_to_devices(
                     torch.from_numpy(frames),
@@ -90,8 +92,8 @@ def make_step(model: torch.nn.Module, infer: Callable, flip: bool,
             outs = mesh.run_replicas(run, devices, [
                 (m, c, idx0) for m, c in zip(replicas, chunks)])
             with span("prisma.step.outputs"):
-                return {k: np.concatenate([o[k].cpu().numpy()
-                                           for o in outs])[:len(frames)]
+                outs = [host_copy.to_host(o) for o in outs]
+                return {k: np.concatenate([o[k] for o in outs])[:len(frames)]
                         for k in outs[0]}
 
     return step

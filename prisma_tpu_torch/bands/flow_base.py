@@ -10,7 +10,8 @@ The model-specific part is `infer_pairs(model, img1, img2)`; the step moves
 a uint8 frame window [T+1, H, W, 3] to the model's device, runs the resize,
 the model and the HSV/consistency epilogues there, eagerly (over several
 cards: one replica and one run of the window a card, `parallel.mesh`), and
-returns host numpy per pair, under the spans of `runtime.profiling`
+returns host numpy per pair (both copies through `runtime.host_copy`:
+pinned on a card), under the spans of `runtime.profiling`
 (`prisma.step`; in it `prisma.step.inputs`, `.model`, `.epilogue`, `.outputs`,
 the first three once a replica on the split path).
 """
@@ -30,6 +31,7 @@ from prisma_tpu_torch.ops import encode as enc
 from prisma_tpu_torch.ops.flow import compute_fwdbwd_mask
 from prisma_tpu_torch.ops.resize import resize2d
 from prisma_tpu_torch.parallel import mesh
+from prisma_tpu_torch.runtime import host_copy
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.runtime.profiling import (SETUP_WEIGHTS, StageProfiler,
                                                 span, timed)
@@ -59,8 +61,8 @@ def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
 
     def run(m: torch.nn.Module, frames_u8: np.ndarray) -> dict:
         with span("prisma.step.inputs"):
-            frames = torch.from_numpy(frames_u8).to(
-                next(m.parameters()).device)
+            frames = host_copy.to_device(frames_u8,
+                                         next(m.parameters()).device)
         with span("prisma.step.model"):
             ds = resize2d(frames.float(), (dh, dw), method="cubic").to(dtype)
             fwd, bwd = infer_pairs(m, ds[:-1], ds[1:])
@@ -80,7 +82,7 @@ def make_flow_step(model: torch.nn.Module, infer_pairs: Callable, ds_hw,
 
     def host(out: dict) -> dict:
         """run's device tensors -> host arrays, the 16-bit encodings made."""
-        res = {k: v.cpu().numpy() for k, v in out.items()}
+        res = host_copy.to_host(out)
         if need_masks and need_enc:
             res["fwd_enc"] = enc.encode_flow(out["fwd"], out["fwd_mask"])
             res["bwd_enc"] = enc.encode_flow(out["bwd"], out["bwd_mask"])

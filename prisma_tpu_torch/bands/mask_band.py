@@ -10,7 +10,8 @@ COLMAP masking, and register band "mask" with the kept class list in metadata
 
 The step moves a uint8 batch to the model's device, runs the network on the
 whole batch, the slab and composite per frame and the SDF there, eagerly,
-and returns host numpy; the host epilogue below is the JAX package's.
+and returns host numpy (both copies through `runtime.host_copy`: pinned on
+a card); the host epilogue below is the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.models import solov2
 from prisma_tpu_torch.ops.sdf import sdf_green_device
 from prisma_tpu_torch.parallel import mesh
+from prisma_tpu_torch.runtime import host_copy
 from prisma_tpu_torch.runtime.config import RuntimeConfig
 from prisma_tpu_torch.weights.store import load_solov2
 
@@ -54,7 +56,7 @@ def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
     def run(m: solov2.SOLOv2, frames_u8: torch.Tensor) -> dict:
         device = next(m.parameters()).device
         class_ids = torch.tensor(CLASS_IDS, device=device)
-        x = frames_u8.to(device)
+        x = host_copy.to_device(frames_u8, device)
         img, img_hw = solov2.preprocess(x, dtype=dtype, scale=cfg.scale)
         composite = []
         for out in solov2.forward(m, img, img_hw, ori_hw):
@@ -74,10 +76,11 @@ def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
     def step(frames_u8: np.ndarray) -> dict:
         x = torch.from_numpy(np.ascontiguousarray(frames_u8))
         if replicas is None:
-            return {k: v.cpu().numpy() for k, v in run(model, x).items()}
+            return host_copy.to_host(run(model, x))
         chunks = mesh.pad_to_devices(x, len(replicas)).chunk(len(replicas))
         outs = mesh.run_replicas(run, devices, list(zip(replicas, chunks)))
-        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:len(x)]
+        outs = [host_copy.to_host(o) for o in outs]
+        return {k: np.concatenate([o[k] for o in outs])[:len(x)]
                 for k in outs[0]}
 
     return step

@@ -157,10 +157,13 @@ class StageProfiler:
         for name, t in sorted(_SETUP.items()):
             lines.append(f"  {name:<26} {t:8.3f}s set-up")
         from prisma_tpu_torch.ops.cuda import build
+        from prisma_tpu_torch.runtime import host_copy
         if build.BUILT or build.CACHED:
             lines.append("  kernels: nvcc builds "
                          + _counted(build.BUILT) + "; cache loads "
                          + _counted(build.CACHED))
+        if host_copy.COPIES:
+            lines.append("  host copies: " + host_copy.summary())
         out = "\n".join(lines)
         print(out)
         return out
