@@ -1,21 +1,6 @@
 """The Depth-Anything configurations' builder: the port's band step, the
-plain reference, the comparison and the work a step needs.
-
-Every configuration's builder module has the same names, which
-`benchmark/run.py` calls:
-- OVERLAP: frames that consecutive inputs share; frames a step counts are
-  the input's frames less OVERLAP.
-- param_specs(cfg), save_checkpoint(sd, models_dir, cfg): the weights the
-  benchmark makes, written under the checkpoint's name and keys.
-- build_step(cfg, traffic, models_dir, device): the port's step, built
-  through the band's own builders and loader.
-- reference(sd, frames, cfg, traffic, ops): the reference's outputs for
-  one input, on frames' device.
-- compare(out, ref): {number: value} for one input.
-- NULL_FLOOR, and optionally RATIOS: how `run.judge` turns the sample's
-  compared values into the numbers held to the cell's limits.
-- step_flops(cfg, traffic), attention_calls(cfg, traffic): one step's work.
-"""
+plain reference, the comparison and the work a step needs. The names it
+defines are every builder's, as benchmark/run.py's docstring lists them."""
 
 from __future__ import annotations
 
@@ -30,6 +15,10 @@ from benchmark.reference.common import Ops
 from benchmark.roofline import attention
 
 OVERLAP = 0
+PRIMARY = "heat"
+TINY = dict(encoder="vits", embed_dim=384, depth=12, num_heads=6, features=64,
+            out_channels=[48, 96, 192, 384], target=42, dtype="float32",
+            checkpoint="depth_anything_vits14.pt")
 NULL_FLOOR = {"heat_gap": 1e-2}
 
 

@@ -1,6 +1,6 @@
-"""The 1-scale GMFlow configurations' builder (the names are those of
-configs/depth_anything_vitl.py): the port's flow step over windows of
-frames, the plain reference, the comparison and the work a step needs."""
+"""The 1-scale GMFlow configurations' builder (the names of
+benchmark/run.py's docstring): the port's flow step over windows of frames,
+the plain reference, the comparison and the work a step needs."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from benchmark.reference.common import Ops, fwdbwd_masks
 from benchmark.roofline import attention
 
 OVERLAP = 1
+PRIMARY = "fwd_rgb"
+TINY = dict(feature_channels=32, num_transformer_layers=2, dtype="float32")
 NULL_FLOOR = {"fwd_rgb_gap": 1e-2, "fwd_flow_gap": 1e-3, "bwd_flow_gap": 1e-3,
               "bwd_rgb_gap": 1e-2}
 # pixels differing over pixels marked, the marked counted as at least 25 an

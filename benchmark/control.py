@@ -34,7 +34,7 @@ def readings(cell: "run.Cell", seed: int, device: str, program: bool = True,
     `faults` ({name: f(output) -> output}), 'faults': {name: numbers} of
     the program's outputs with each fault planted where they are produced."""
     b = cell.builder
-    with run.checkpoint(cell, seed, device) as (models_dir, ckpt):
+    with run.checkpoint(cell, seed, device) as (models_dir, saved):
         pool = run.make_pool(cell, seed, device)
         outs = None
         if program:
@@ -42,7 +42,7 @@ def readings(cell: "run.Cell", seed: int, device: str, program: bool = True,
             outs = [step(x) for x in pool]
             del step
         run.free_program(device)
-        ref_sd = b.load_reference_weights(ckpt, device)
+        ref_sd = b.load_reference_weights(saved, device)
     samples = {}
     for k, x in enumerate(pool):
         inp = torch.from_numpy(x).to(device)

@@ -5,15 +5,47 @@
 (or `python3 -m benchmark.run ...`) from the root of a checkout. The cell is
 found by name in BENCHMARK.json; its configuration, traffic, limits and
 metrics are files found by name under benchmark/:
-- configs/<config>.json, the sizes as run, and configs/<config>.py, its
-  builder (the port's step through the band's builders, the reference, the
-  comparison, the work a step needs; see configs/depth_anything_vitl.py);
+- configs/<config>.json, the sizes as run (with `reference`, the path of
+  its plain reference from the checkout's root), and configs/<config>.py,
+  its builder (below);
 - traffic/<traffic>.json, read by the one frame generator (frames.py);
 - limits/<cell>.json, the limit of each number that decides `correct`;
-- metrics/<metric>.py, a reader `read(ctx)` of each metric.
+- metrics/<metric>.py, a reader `read(ctx)` of each metric, returning None
+  where it finds nothing to read.
+
+A configuration's builder module has these names, which this file, the
+control (control.py) and the tests (tests/) call:
+- OVERLAP: frames that consecutive inputs share; a step counts the input's
+  frames less OVERLAP, and each of its outputs has that many rows.
+- PRIMARY: the output that the planted fault "one answer altered" alters.
+- TINY: the configuration's overrides that run it on the CPU in seconds
+  (narrow, float32), for the tests (tests/tiny.py).
+- param_specs(cfg): the weights the benchmark makes (weights.py).
+- save_checkpoint(sd, models_dir, cfg): writes them under the checkpoints'
+  real names and keys in models_dir; returns the path written, or a list
+  of the paths where the configuration has several checkpoints. The run
+  removes each of them afterwards, whether it failed or not.
+- load_reference_weights(saved, device): the float32 weights for the
+  reference from what save_checkpoint returned.
+- build_step(cfg, traffic, models_dir, device): the port's step, built
+  through the band's own builders and loader: host uint8 frames [T, H, W, 3]
+  -> {name: host array}.
+- reference(sd, frames, cfg, traffic, ops): the reference's outputs for
+  one input, on frames' device (reference/common.Ops carries the products).
+- compare(out, ref): {number: value} for one input.
+- NULL_FLOOR, and optionally RATIOS: how `judge` turns the sample's
+  compared values into the numbers held to the cell's limits.
+- step_flops(cfg, traffic), attention_calls(cfg, traffic): one step's work.
+
+A configuration is added as new files only: its .json and builder under
+configs/, its reference under reference/, a limits file of each cell, and
+its entries in BENCHMARK.json; a new traffic mix or per-layer metric is one
+more file each (the device ms a step launched under a span of the program:
+`spans.device_ms_per_step`, as metrics/epilogue_ms.py). No file already
+here needs an edit.
 
 A run finds the card or fails, makes the weights from the seed on the card,
-saves them under the checkpoint's real name and loads them through the
+saves them under the checkpoints' real names and loads them through the
 port's own loader, makes a pool of host frames from the seed, warms the
 cell's one input shape, then calls the step in a closed loop for --seconds.
 With --trace 1, torch.profiler covers a stretch of steps after the first
@@ -65,7 +97,7 @@ import traceback  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark import frames, seeds, weights  # noqa: E402
+from benchmark import frames, seeds, spans, weights  # noqa: E402
 from benchmark.trace import Trace  # noqa: E402
 from benchmark.reference.common import Ops, bf16_round, no_tf32  # noqa: E402
 
@@ -288,20 +320,22 @@ def references(cell: Cell, sd: dict, frames_u8: torch.Tensor) -> tuple:
 @contextlib.contextmanager
 def checkpoint(cell: Cell, seed: int, device: str):
     """The weights made from the seed on the device and saved under the
-    checkpoint's real name and keys in a models directory under TMPDIR;
-    yields (models_dir, path) and removes the file after."""
+    checkpoints' real names and keys in a models directory under TMPDIR;
+    yields (models_dir, what save_checkpoint returned: a path or a list of
+    paths) and removes every file of it after, also where the run raised."""
     b = cell.builder
     models_dir = os.path.join(tempfile.gettempdir(), "prisma_benchmark_models")
     os.makedirs(models_dir, exist_ok=True)
     sd = weights.make_state_dict(b.param_specs(cell.cfg),
                                  seeds.substream(seed, seeds.WEIGHTS), device)
-    path = b.save_checkpoint(sd, models_dir, cell.cfg)
+    saved = b.save_checkpoint(sd, models_dir, cell.cfg)
     del sd
     try:
-        yield models_dir, path
+        yield models_dir, saved
     finally:
-        if os.path.exists(path):
-            os.remove(path)
+        for path in [saved] if isinstance(saved, str) else saved:
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def make_pool(cell: Cell, seed: int, device: str) -> list:
@@ -318,11 +352,11 @@ def free_program(device: str) -> None:
         no_tf32()
 
 
-def check(cell: Cell, pool: list, kept: list, ckpt: str, device: str,
+def check(cell: Cell, pool: list, kept: list, saved, device: str,
           failed: int) -> tuple:
     """(correct, {number: {value, limit}}): the references over the
     sampled inputs, the sample judged, each number held to its limit."""
-    sd = cell.builder.load_reference_weights(ckpt, device)
+    sd = cell.builder.load_reference_weights(saved, device)
     refs = {}
     for k, _ in kept:
         if k not in refs:
@@ -340,12 +374,24 @@ def check(cell: Cell, pool: list, kept: list, ckpt: str, device: str,
     return correct, checks
 
 
+def report_spans(trace: Trace) -> None:
+    """The traced steps' device seconds by the span that launched them, on
+    standard error, against all the trace's device seconds."""
+    by_span = spans.device_by_span(trace)
+    if by_span is None:
+        return
+    print("device s by span over the traced steps: "
+          + json.dumps(dict(sorted(by_span.items(), key=lambda kv: -kv[1])))
+          + f"; together {sum(by_span.values())!r} of the trace's "
+          f"{trace.device_s(lambda n: True)!r}", file=sys.stderr, flush=True)
+
+
 def run(cell: Cell, seed: int, seconds: float, trace: bool,
         device: str = "cuda", kind: str | None = None) -> dict:
     """One run of the cell -> the result object (without printing)."""
     b = cell.builder
     t = time.perf_counter()
-    with checkpoint(cell, seed, device) as (models_dir, ckpt):
+    with checkpoint(cell, seed, device) as (models_dir, saved):
         t_w = time.perf_counter()
         step = b.build_step(cell.cfg, cell.traffic, models_dir, device)
         t_b = time.perf_counter()
@@ -363,7 +409,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
                          seeds.substream(seed, seeds.SAMPLE), device)
         del step
         free_program(device)
-        correct, checks = check(cell, pool, window["kept"], ckpt, device,
+        correct, checks = check(cell, pool, window["kept"], saved, device,
                                 window["failed"])
 
     ctx = Context(cell, window, setup_s, kind)
@@ -381,6 +427,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         dev["busy_s"] = window["trace"].busy_s
         dev["window_s"] = window["trace"].window_s
         result["breakdown"] = window["trace"].breakdown()
+        report_spans(window["trace"])
     result["checks"] = checks
     return result
 

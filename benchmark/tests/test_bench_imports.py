@@ -10,7 +10,10 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from benchmark import run
+from benchmark.tests.tiny import manifest
 
 RUN_A_TINY_CELL = """
 import json, sys
@@ -23,36 +26,45 @@ print(json.dumps({"forbidden": run.forbidden_modules(),
                   "correct": res["correct"]}))
 """
 
+# a configuration's reference, loaded from its `reference` key, run through
+# its builder at the builder's TINY size on frames of the cell's traffic
 REFERENCE_ALONE = """
-import json, sys, torch
-from benchmark.reference import common, depth_anything, gmflow
-from benchmark.tests.tiny import TINY_DEPTH, TINY_FLOW, tiny_cell
-from benchmark import weights
-for name in ("depth_anything_vitl.1080p", "gmflow_sintel.1080p_bidir_mask"):
-    cell = tiny_cell(name)
-    sd = weights.make_state_dict(cell.builder.param_specs(cell.cfg), 1, "cpu",
-                                 torch.float32)
-    x = torch.randint(0, 255, (3, 64, 96, 3), dtype=torch.uint8)
-    cell.builder.reference(sd, x, cell.cfg, cell.traffic)
-print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+import json, os, sys, torch
+from benchmark import run, weights
+from benchmark.tests.tiny import manifest, tiny
+m = manifest()
+config = {config!r}
+c = next(c for c in m["configs"] if c["name"] == config)
+path = run.load_json(run.ROOT, c["file"])["reference"]
+run.load_module(os.path.join(run.ROOT, path), "reference_of_" + config)
+cell = tiny(run.Cell(m, next(w["name"] for w in m["workloads"]
+                             if w["config"] == config)))
+sd = weights.make_state_dict(cell.builder.param_specs(cell.cfg), 1, "cpu",
+                             torch.float32)
+x = torch.randint(0, 255, (3, cell.traffic["height"], cell.traffic["width"],
+                           3), dtype=torch.uint8)
+cell.builder.reference(sd, x, cell.cfg, cell.traffic)
+print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 
-def _python(code: str) -> str:
-    env = dict(os.environ, PYTHONPATH=run.ROOT)
+def _python(code: str, tmp_dir) -> str:
+    env = dict(os.environ, PYTHONPATH=run.ROOT, TMPDIR=str(tmp_dir))
     r = subprocess.run([sys.executable, "-c", code], cwd=run.ROOT, env=env,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     return r.stdout.strip().splitlines()[-1]
 
 
-def test_a_run_loads_no_jax_and_not_the_jax_package():
-    out = json.loads(_python(RUN_A_TINY_CELL))
+def test_a_run_loads_no_jax_and_not_the_jax_package(tmp_path):
+    out = json.loads(_python(RUN_A_TINY_CELL, tmp_path))
     assert out["port"] and out["correct"] in (True, False)
     assert out["forbidden"] == []
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    tops = set(json.loads(_python(REFERENCE_ALONE)))
+@pytest.mark.parametrize("config", [c["name"] for c in manifest()["configs"]])
+def test_the_reference_loads_nothing_of_the_program(config, tmp_path):
+    tops = set(json.loads(_python(REFERENCE_ALONE.format(config=config),
+                                  tmp_path)))
     assert not tops & {"prisma_tpu_torch", "prisma_tpu", "jax", "jaxlib",
                        "flax"}

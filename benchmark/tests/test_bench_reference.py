@@ -5,6 +5,7 @@ not correct under the cells' limits; a sound run comes out correct."""
 from __future__ import annotations
 
 import math
+import tempfile
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from benchmark import control, run
 from benchmark.reference.common import fwdbwd_masks
+from benchmark.tests.faults import FAULTS, files_left, run_with
 from benchmark.tests.tiny import names, tiny_cell
 
 # float32 on both sides at tiny widths: the two part by the order of f32
@@ -26,9 +28,10 @@ F32_AGREE = {"heat_gap": 0.05, "fwd_rgb_gap": 0.05, "fwd_flow_gap": 1e-3,
 
 @pytest.mark.parametrize("name", ["depth_anything_vitl.1080p",
                                   "gmflow_sintel.1080p_bidir_mask"])
-def test_reference_agrees_with_the_port_in_f32(name, monkeypatch):
+def test_reference_agrees_with_the_port_in_f32(name, monkeypatch, tmp_path):
     """The raw gaps, not over the null: a float32 port against the float32
     reference."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     cell = tiny_cell(name)
     monkeypatch.setattr(run, "judge", _worst_raw_gaps)
     r = control.readings(cell, 5, "cpu", control=False)
@@ -47,49 +50,21 @@ def _worst_raw_gaps(b, sample):
 
 @pytest.mark.parametrize("name", ["depth_anything_vitl.1080p",
                                   "gmflow_sintel.1080p_bidir_mask"])
-def test_control_fails_the_limits(name):
+def test_control_fails_the_limits(name, monkeypatch, tmp_path):
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     cell = tiny_cell(name)
     r = control.readings(cell, 6, "cpu", program=False)
     assert any(r["control"][k] > lim for k, lim in cell.limits.items()), r
 
 
-def _alter_one_answer(step):
-    def broken(frames):
-        out = step(frames)
-        key = "heat" if "heat" in out else "fwd_rgb"
-        out[key][0] = 255 - out[key][0]
-        return out
-    return broken
-
-
-def _half_the_batch(step):
-    """Only the first half of the frames computed; the left-out outputs are
-    copies of the computed ones."""
-    def broken(frames):
-        out = step(frames[:len(frames) // 2 + 1])
-        n = len(frames) if "heat" in out else len(frames) - 1
-        return {k: np.concatenate([v] * 3)[:n] for k, v in out.items()}
-    return broken
-
-
-def _run(cell, wrapper, monkeypatch):
-    build = cell.builder.build_step
-    if wrapper is not None:
-        monkeypatch.setattr(cell.builder, "build_step",
-                            lambda *a: wrapper(build(*a)))
-    return run.run(cell, 2 ** 31 + 99, 1.0, trace=False, device="cpu")
-
-
 @pytest.mark.parametrize("name", names())
-@pytest.mark.parametrize("fault", [None, "one answer altered",
-                                   "half the batch left out"])
-def test_faults_are_not_correct(name, fault, monkeypatch):
+@pytest.mark.parametrize("fault", list(FAULTS))
+def test_faults_are_not_correct(name, fault, monkeypatch, tmp_path):
     cell = tiny_cell(name)
-    wrapper = {None: None, "one answer altered": _alter_one_answer,
-               "half the batch left out": _half_the_batch}[fault]
-    res = _run(cell, wrapper, monkeypatch)
+    res = run_with(cell, FAULTS[fault], monkeypatch, tmp_path)
     assert res["correct"] is (fault is None), res["checks"]
     assert res["attempted"] > 0 and res["failed"] == 0
+    assert files_left(tmp_path) == []
 
 
 def _masks(fn):
@@ -123,11 +98,11 @@ MASK_FAULTS = {**CARD_MASK_FAULTS,
 
 
 @pytest.mark.parametrize("fault", sorted(MASK_FAULTS))
-def test_mask_faults_are_not_correct(fault, monkeypatch):
+def test_mask_faults_are_not_correct(fault, monkeypatch, tmp_path):
     cell = tiny_cell("gmflow_sintel.1080p_bidir_mask")
     planted = MASK_FAULTS[fault]
-    res = _run(cell, lambda step: lambda frames: planted(step(frames)),
-               monkeypatch)
+    res = run_with(cell, lambda step, _: lambda frames: planted(step(frames)),
+                   monkeypatch, tmp_path)
     assert res["correct"] is False
     check = res["checks"]["mask_mismatch_of_marked"]
     assert check["value"] > check["limit"], check

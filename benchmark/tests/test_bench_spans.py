@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from benchmark import spans
+from benchmark.families import ELEMENTWISE
 from benchmark.trace import Trace
 from benchmark.tests.tiny import bench_path
 from benchmark.run import load_module
@@ -24,8 +25,9 @@ CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
 class Event:
     def __init__(self, name, start, end, device=CPU, activity="",
-                 thread=MAIN, annotation=False):
-        self._v = (name, start, end, device, activity, thread, annotation)
+                 thread=MAIN, annotation=False, corr=0):
+        self._v = (name, start, end, device, activity, thread, annotation,
+                   corr)
 
     def name(self):
         return self._v[0]
@@ -48,6 +50,9 @@ class Event:
     def is_user_annotation(self):
         return self._v[6]
 
+    def correlation_id(self):
+        return self._v[7]
+
 
 class Results:
     def __init__(self, events):
@@ -57,8 +62,8 @@ class Results:
         return self._events
 
 
-def kernel(start, end, name="elementwise_kernel"):
-    return Event(name, start, end, CUDA, "kernel")
+def kernel(start, end, name="elementwise_kernel", corr=0):
+    return Event(name, start, end, CUDA, "kernel", corr=corr)
 
 
 def one_step_trace(with_spans=True) -> Trace:
@@ -112,6 +117,81 @@ def test_a_gap_in_the_step_under_no_stage_is_counted():
               Event("prisma.step.model", 100, 900)]
     got = spans.idle_by_stage(Trace(Results(events), 2))
     assert got == pytest.approx({spans.IN_STEP: 200e-9}, abs=1e-15)
+
+
+def launched_trace(with_spans=True) -> Trace:
+    """One step over [0, 2000] ns with the stages of one_step_trace's step
+    (inputs [120, 300], model [300, 600] with the encoder [310, 590] in it,
+    epilogue [600, 700], outputs [700, 880]) and a launch call for each
+    device event: the H2D launched at 130 in the inputs; a kernel at 302 in
+    the model and one at 400 in the encoder; two kernels launched at 640 and
+    660 in the epilogue, the second through the driver API, both running
+    after the span closed, at [720, 800] and [800, 900]; the D2H
+    at 710 in the outputs; a kernel launched by another thread at 650; one
+    launched at 950, after the step; one whose launch the trace lost."""
+    events = [Event("bench.step_call", 100, 1000),
+              Event("cudaMemcpyAsync", 130, 140, corr=11),
+              kernel(150, 250, "Memcpy HtoD (Pinned -> Device)", corr=11),
+              Event("cudaLaunchKernel", 302, 305, corr=12),
+              kernel(330, 400, corr=12),
+              Event("cudaLaunchKernel", 400, 405, corr=13),
+              kernel(410, 580, "flash_fwd_bf16", corr=13),
+              Event("cudaLaunchKernel", 640, 645, corr=14),
+              kernel(720, 800, corr=14),
+              Event("cuLaunchKernel", 660, 665, corr=15),
+              kernel(800, 900, "instance_norm_relu_kernel", corr=15),
+              Event("cudaMemcpyAsync", 710, 715, corr=16),
+              kernel(900, 930, "Memcpy DtoH (Device -> Pinned)", corr=16),
+              Event("cudaLaunchKernel", 650, 655, thread=OTHER, corr=17),
+              kernel(940, 960, corr=17),
+              Event("cudaLaunchKernel", 950, 955, corr=18),
+              kernel(960, 990, corr=18),
+              kernel(990, 1000, corr=19),
+              Event("prisma.step.model", 330, 580, CUDA,
+                    "gpu_user_annotation", annotation=True, corr=12)]
+    if with_spans:
+        events += [Event("prisma.step", 110, 890),
+                   Event("prisma.step.inputs", 120, 300),
+                   Event("prisma.step.model", 300, 600),
+                   Event("prisma.model.encoder", 310, 590),
+                   Event("prisma.step.epilogue", 600, 700),
+                   Event("prisma.step.outputs", 700, 880)]
+    return Trace(Results(events), 2)
+
+
+def test_device_time_goes_to_the_span_of_its_launch():
+    """Each device event goes to the innermost span open at its launch,
+    where it ran after the span closed too; a launch under no torch
+    operator (K1's, made from ctypes) and the driver's count like any
+    other; the spans sum to all the trace's device time."""
+    trace = launched_trace()
+    got = spans.device_by_span(trace)
+    assert got == pytest.approx({
+        "prisma.step.inputs": 100e-9, "prisma.step.model": 70e-9,
+        "prisma.model.encoder": 170e-9, "prisma.step.epilogue": 180e-9,
+        "prisma.step.outputs": 30e-9, spans.OUTSIDE_SPANS: 50e-9,
+        spans.NO_LAUNCH: 10e-9}, abs=1e-15)
+    assert sum(got.values()) == pytest.approx(
+        trace.device_s(lambda n: True), abs=1e-15)
+
+
+def test_the_launches_change_nothing_the_trace_reported():
+    trace = launched_trace()
+    assert trace.busy_s == pytest.approx(610e-9, abs=1e-15)
+    assert trace.window_s == pytest.approx(900e-9, abs=1e-15)
+    assert trace.families() == pytest.approx({
+        "host copies (HtoD)": 100e-9, "host copies (DtoH)": 30e-9,
+        "K1 flash attention": 170e-9, "K4 instance norm": 100e-9,
+        ELEMENTWISE: 210e-9}, abs=1e-15)
+    assert sum(trace.idle_gaps().values()) == pytest.approx(290e-9, abs=1e-15)
+
+
+def test_the_epilogue_reader():
+    reader = _reader("epilogue_ms")
+    assert reader.read(_ctx(launched_trace())) == pytest.approx(90e-6)
+    assert reader.read(_ctx(one_step_trace())) == 0.0
+    assert reader.read(_ctx(launched_trace(with_spans=False))) is None
+    assert reader.read(_ctx(None)) is None
 
 
 def _ctx(trace):

@@ -1,8 +1,9 @@
 """The reduction of a torch.profiler trace of a stretch of steps to what the
 per-layer metrics read: the device's kernels, copies and sets with their
-times, the host's ranges and operations, the traced wall window, the
-device's busy time in it, and the idle gaps labelled by what the host was
-doing."""
+times and the correlation ids of their launches, the host's ranges and
+operations, the launches (CUDA runtime and driver calls) with their threads
+and times, the traced wall window, the device's busy time in it, and the
+idle gaps labelled by what the host was doing."""
 
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ from benchmark.families import kernel_family
 
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 BENCH_PREFIX = "bench."
+# the host events that launch device work: CUDA runtime calls (cudaLaunchKernel,
+# cudaMemcpyAsync, ...; also those of the port's own kernels, made from ctypes
+# outside any torch operator) and driver calls (cuLaunchKernel)
+LAUNCH_PREFIX = "cu"
 
 
 def _activity(e) -> str:
@@ -28,12 +33,19 @@ def _activity(e) -> str:
 
 class Trace:
     """One profiled stretch of `steps` steps, from the kineto results of
-    torch.profiler (CPU and CUDA activities)."""
+    torch.profiler (CPU and CUDA activities).
+
+    device: (name, start ns, end ns) of each device event; device_corr: the
+    correlation id of each one's launch, in the same order; launches:
+    {correlation id: (start ns, thread)} of the host's launch calls on any
+    thread; host: (name, start ns, end ns) of the host's events on the
+    main thread, the one that opens the benchmark's ranges."""
 
     def __init__(self, kineto_results, steps: int):
         self.steps = steps
-        self.device, self.host = [], []
-        main_thread = None
+        self.device, self.host, self.device_corr = [], [], []
+        self.launches = {}
+        self.main_thread = None
         for e in kineto_results.events():
             span = (e.name(), e.start_ns(), e.end_ns())
             act = _activity(e)
@@ -42,11 +54,15 @@ class Trace:
                     and not e.is_user_annotation()
                     and "annotation" not in act):
                 self.device.append(span)
+                self.device_corr.append(e.correlation_id())
             elif e.device_type() == torch.autograd.DeviceType.CPU:
                 self.host.append(span + (e.start_thread_id(),))
                 if e.name().startswith(BENCH_PREFIX):
-                    main_thread = e.start_thread_id()
-        self.host = [h[:3] for h in self.host if h[3] == main_thread]
+                    self.main_thread = e.start_thread_id()
+                if e.name().startswith(LAUNCH_PREFIX):
+                    self.launches[e.correlation_id()] = (e.start_ns(),
+                                                         e.start_thread_id())
+        self.host = [h[:3] for h in self.host if h[3] == self.main_thread]
         bench = [h for h in self.host if h[0].startswith(BENCH_PREFIX)]
         if not bench:
             raise RuntimeError("the trace holds none of the benchmark's "
