@@ -11,7 +11,10 @@ COLMAP masking, and register band "mask" with the kept class list in metadata
 The step moves a uint8 batch to the model's device, runs the network on the
 whole batch, the slab and composite per frame and the SDF there, eagerly,
 and returns host numpy (both copies through `runtime.host_copy`: pinned on
-a card); the host epilogue below is the JAX package's.
+a card); the host epilogue below is the JAX package's. The step opens the
+spans of `runtime.profiling` as the depth and flow steps do: `prisma.step`
+and in it `prisma.step.inputs`, `.model` (SOLOv2's, `models/solov2.py`),
+`.epilogue` (the kept classes' composite and the SDF) and `.outputs`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from prisma_tpu_torch.ops.sdf import sdf_green_device
 from prisma_tpu_torch.parallel import mesh
 from prisma_tpu_torch.runtime import host_copy
 from prisma_tpu_torch.runtime.config import RuntimeConfig
+from prisma_tpu_torch.runtime.profiling import span
 from prisma_tpu_torch.weights.store import load_solov2
 
 BAND = "mask"
@@ -55,33 +59,45 @@ def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
 
     def run(m: solov2.SOLOv2, frames_u8: torch.Tensor) -> dict:
         device = next(m.parameters()).device
-        class_ids = torch.tensor(CLASS_IDS, device=device)
-        x = host_copy.to_device(frames_u8, device)
-        img, img_hw = solov2.preprocess(x, dtype=dtype, scale=cfg.scale)
-        composite = []
-        for out in solov2.forward(m, img, img_hw, ori_hw):
-            keep = (out["valid"] & (out["scores"] > confidence)
-                    & (out["labels"][:, None] == class_ids[None]).any(dim=1))
-            # the reference sums 255-white masks in float, then casts to
-            # uint8 (which wraps)
-            composite.append(((out["masks"] & keep[:, None, None]).float()
-                              * 255.0).sum(dim=0))
-        composite = torch.stack(composite)
-        res = {"composite": composite}
-        if sdf:
-            res["green"] = sdf_green_device(composite != 0.0)
+        with span("prisma.step.inputs"):
+            x = host_copy.to_device(frames_u8, device)
+        with span("prisma.step.model"):
+            img, img_hw = solov2.preprocess(x, dtype=dtype, scale=cfg.scale)
+            slabs = solov2.forward(m, img, img_hw, ori_hw)
+        with span("prisma.step.epilogue"):
+            class_ids = torch.tensor(CLASS_IDS, device=device)
+            composite = []
+            for out in slabs:
+                keep = (out["valid"] & (out["scores"] > confidence)
+                        & (out["labels"][:, None]
+                           == class_ids[None]).any(dim=1))
+                # the reference sums 255-white masks in float, then casts to
+                # uint8 (which wraps)
+                composite.append(((out["masks"] & keep[:, None, None])
+                                  .float() * 255.0).sum(dim=0))
+            composite = torch.stack(composite)
+            res = {"composite": composite}
+            if sdf:
+                res["green"] = sdf_green_device(composite != 0.0)
         return res
 
     @torch.inference_mode()
     def step(frames_u8: np.ndarray) -> dict:
-        x = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        if replicas is None:
-            return host_copy.to_host(run(model, x))
-        chunks = mesh.pad_to_devices(x, len(replicas)).chunk(len(replicas))
-        outs = mesh.run_replicas(run, devices, list(zip(replicas, chunks)))
-        outs = [host_copy.to_host(o) for o in outs]
-        return {k: np.concatenate([o[k] for o in outs])[:len(x)]
-                for k in outs[0]}
+        with span("prisma.step"):
+            x = torch.from_numpy(np.ascontiguousarray(frames_u8))
+            if replicas is None:
+                out = run(model, x)
+                with span("prisma.step.outputs"):
+                    return host_copy.to_host(out)
+            with span("prisma.step.inputs"):
+                chunks = mesh.pad_to_devices(x, len(replicas)).chunk(
+                    len(replicas))
+            outs = mesh.run_replicas(run, devices,
+                                     list(zip(replicas, chunks)))
+            with span("prisma.step.outputs"):
+                outs = [host_copy.to_host(o) for o in outs]
+                return {k: np.concatenate([o[k] for o in outs])[:len(x)]
+                        for k in outs[0]}
 
     return step
 

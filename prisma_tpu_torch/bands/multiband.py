@@ -15,11 +15,17 @@ fused outputs equal running the bands one by one.
 Frame-index resume: every output video is segmented; the pipeline resumes
 all bands at the least of their completed segment boundaries, so one reader
 position serves every sink (bands ahead of it rewrite identical segments).
+
+The device part of the loop is `FusedDispatch` (the steps on a batch, the
+flow buffer and its windows, the padded tail window); `segment_step` runs
+it over a segment of frames held in memory, with no decode and no sink, as
+a benchmark calls it.
 """
 
 from __future__ import annotations
 
 import importlib
+from collections import Counter
 
 import numpy as np
 import torch
@@ -60,12 +66,14 @@ def build_steps(runtime: RuntimeConfig, H: int, W: int, *,
                 flow_band: str | None = "flow_gmflow",
                 flow_build: dict | None = None, flow_scale: float = 0.75,
                 flow_backwards: bool = False, flow_mask: bool = False,
-                flow_flo: bool = False, flow_enc: bool = False):
+                flow_flo: bool = False, flow_enc: bool = False,
+                mask_cfg=None):
     """The device steps run_fused dispatches for a batch of (H, W) frames,
     each None where its band is off: -> (mask_step, depth_step, flow_step,
     depth_flip). Options as run_fused's; depth_need: the step returns the
     depth itself (per-frame files, npy); flow_flo / flow_enc: .flo files /
-    16-bit PNGs are written."""
+    16-bit PNGs are written; mask_cfg: SOLOv2's `SOLOv2Config` (None: the
+    published R101 one)."""
     from prisma_tpu_torch.bands import depth_base, flow_base, mask_band
 
     mask_step = depth_step = flow_step = None
@@ -73,7 +81,8 @@ def build_steps(runtime: RuntimeConfig, H: int, W: int, *,
     if mask_on:
         conf = mask_band.CONFIDENCE_THRESHOLD if mask_confidence is None \
             else mask_confidence
-        mask_step = mask_band.build_step(runtime, (H, W), conf, mask_sdf)
+        mask_step = mask_band.build_step(runtime, (H, W), conf, mask_sdf,
+                                         mask_cfg)
     if depth_band is not None:
         mod = importlib.import_module(
             f"prisma_tpu_torch.bands.{BAND_MODULES[depth_band]}")
@@ -89,6 +98,140 @@ def build_steps(runtime: RuntimeConfig, H: int, W: int, *,
             model, finfer, flow_scale, W, H, runtime, backwards=flow_backwards,
             mask=flow_mask, flo=flow_flo, enc=flow_enc)
     return mask_step, depth_step, flow_step, depth_flip
+
+
+def _call(step, x):
+    return step(x)
+
+
+class FusedDispatch:
+    """The device part of the fused loop over one stream of frames: the mask
+    and depth steps on each batch, the frames appended to the flow buffer,
+    the flow windows of `batch_size` frames (`batch_size - 1` pairs) that a
+    batch completes, each window's last frame the next one's first, and the
+    short final window padded with its last frame (flow_base.run_flow_band's
+    grouping). A step that is None is skipped; `run(step, x)` calls each.
+
+    `counts` (a Counter kept on the host, no device sync): the batches and
+    windows dispatched by band ("mask batches", "depth batches", "flow
+    windows") and the frames that padding added ("padded batch frames",
+    "padded flow frames")."""
+
+    def __init__(self, mask_step, depth_step, flow_step, batch_size: int,
+                 run=_call):
+        self.mask_step = mask_step
+        self.depth_step = depth_step
+        self.flow_step = flow_step
+        self.win = max(1, batch_size - 1) + 1
+        self.run = run
+        self.flow_buf: list[np.ndarray] = []
+        self.counts: Counter = Counter()
+
+    def batch(self, frames: np.ndarray, valid: int):
+        """frames [B, H, W, 3], the first `valid` real and the rest padding
+        -> (mask output or None, depth output or None, [the outputs of the
+        flow windows the batch completes])."""
+        mask_out = depth_out = None
+        if self.mask_step is not None:
+            mask_out = self.run(self.mask_step, frames)
+            self.counts["mask batches"] += 1
+        if self.depth_step is not None:
+            depth_out = self.run(self.depth_step, frames)
+            self.counts["depth batches"] += 1
+        if mask_out is not None or depth_out is not None:
+            self.counts["padded batch frames"] += len(frames) - valid
+        return mask_out, depth_out, self.feed(frames[:valid])
+
+    def feed(self, frames) -> list:
+        """Append frames to the flow buffer -> the outputs of the windows
+        they complete, `win - 1` pairs each."""
+        if self.flow_step is None:
+            return []
+        self.flow_buf.extend(frames)
+        outs = []
+        while len(self.flow_buf) >= self.win:
+            window = np.stack(self.flow_buf[:self.win])
+            self.flow_buf = self.flow_buf[self.win - 1:]
+            outs.append(self.run(self.flow_step, window))
+            self.counts["flow windows"] += 1
+        return outs
+
+    def tail(self):
+        """The short final window, padded to `win` frames by repeating its
+        last -> (its output, its real pairs), or None where the buffer holds
+        no pair. The buffer is left empty."""
+        buf, self.flow_buf = self.flow_buf, []
+        if self.flow_step is None or len(buf) < 2:
+            return None
+        pad = self.win - len(buf)
+        out = self.run(self.flow_step, np.stack(buf + [buf[-1]] * pad))
+        self.counts["flow windows"] += 1
+        self.counts["padded flow frames"] += pad
+        return out, len(buf) - 1
+
+    def drive(self, batches, flow_only=()):
+        """One stream: each (frames, valid) of `batches` through `batch`,
+        then the frames of `flow_only` (which the flow windows take and the
+        mask and depth steps do not), then the tail window -> yields
+        (valid, [(band, output, rows to keep)]) a batch and, last,
+        (0, [what follows the last batch])."""
+        self.flow_buf = []
+        for frames, valid in batches:
+            mask_out, depth_out, flow_outs = self.batch(frames, valid)
+            outs = [(band, out, valid) for band, out in
+                    (("mask", mask_out), ("depth", depth_out))
+                    if out is not None]
+            yield valid, outs + [("flow", out, self.win - 1)
+                                 for out in flow_outs]
+        outs = [("flow", out, self.win - 1) for out in self.feed(flow_only)]
+        tail = self.tail()
+        yield 0, outs + ([("flow", *tail)] if tail is not None else [])
+
+
+def _batches(frames: np.ndarray, batch_size: int):
+    """(frames, valid) in batches of `batch_size`, the last edge-padded as
+    `VideoReader.batches(pad_to_full=True)` pads it."""
+    for i in range(0, len(frames), batch_size):
+        batch = frames[i:i + batch_size]
+        valid = len(batch)
+        if valid < batch_size:
+            batch = np.concatenate(
+                [batch, np.repeat(batch[-1:], batch_size - valid, 0)])
+        yield batch, valid
+
+
+def segment_step(mask_step, depth_step, flow_step, batch_size: int):
+    """The fused step over a segment of frames held in memory: host uint8
+    frames [T, H, W, 3], T >= 2 -> {"<band>.<output>": host array of T - 1
+    rows} (bands "mask", "depth", "flow"). Mask and depth run on frames
+    [0, T - 1) in batches of `batch_size`, the last edge-padded; flow runs
+    on the T - 1 pairs in run_fused's windows. The returned step's `counts`
+    is its FusedDispatch's, over every call."""
+    fused = FusedDispatch(mask_step, depth_step, flow_step, batch_size)
+
+    def step(frames: np.ndarray) -> dict:
+        n = len(frames) - 1
+        if n < 1:
+            raise ValueError(f"a segment needs 2 frames or more, got {n + 1}")
+        rows: dict[str, list] = {}
+        for _, outs in fused.drive(_batches(frames[:n], batch_size),
+                                   flow_only=frames[n:]):
+            for band, out, valid in outs:
+                for k, v in out.items():
+                    rows.setdefault(f"{band}.{k}", []).append(v[:valid])
+        return {k: np.concatenate(v) for k, v in rows.items()}
+
+    step.counts = fused.counts
+    return step
+
+
+def build_segment_step(runtime: RuntimeConfig, H: int, W: int, **options):
+    """`segment_step` over the steps `build_steps(runtime, H, W, **options)`
+    builds, in batches of runtime.batch_size."""
+    mask_step, depth_step, flow_step, _ = build_steps(runtime, H, W,
+                                                      **options)
+    return segment_step(mask_step, depth_step, flow_step,
+                        runtime.batch_size)
 
 
 def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
@@ -150,7 +293,6 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
     reader = VideoReader(ios[0].input)
     W, H, fps = reader.width, reader.height, reader.fps
     B = runtime.batch_size
-    win = max(1, B - 1) + 1  # a flow window: pairs_per_batch consecutive pairs
 
     # the resume point: the least of the active bands' completed segments.
     # Sinks may lower it further (a short ledger); rebuild until they agree.
@@ -206,40 +348,17 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
         with prof.host("prisma.step"):
             return step(x)
 
+    fused = FusedDispatch(mask_step, depth_step, flow_step, B, run=run_step)
     prof.start_device_trace()
     frames_done = 0
-    flow_buf: list[np.ndarray] = []
-    for frames, valid in prof.iterate(reader.batches(B, pad_to_full=True),
-                                      "prisma.decode_wait"):
-        mask_out = run_step(mask_step, frames) if mask_step is not None \
-            else None
-        depth_out = run_step(depth_step, frames) if depth_step is not None \
-            else None
-        flow_outs = []
-        if flow_step is not None:
-            flow_buf.extend(frames[:valid])
-            while len(flow_buf) >= win:
-                window = np.stack(flow_buf[:win])
-                flow_buf = flow_buf[win - 1:]
-                flow_outs.append(run_step(flow_step, window))
-        with prof.stage("prisma.sink"):
-            if mask_out is not None:
-                sinks["mask"].emit(mask_out, valid)
-            if depth_out is not None:
-                sinks["depth"].emit(depth_out, valid)
-            for out in flow_outs:
-                sinks["flow"].emit(out, win - 1)
+    batches = prof.iterate(reader.batches(B, pad_to_full=True),
+                           "prisma.decode_wait")
+    for valid, outs in fused.drive(batches):
+        if outs:
+            with prof.stage("prisma.sink"):
+                for band, out, rows in outs:
+                    sinks[band].emit(out, rows)
         frames_done += valid
-
-    # flow tail: a short final window pads by repeating the last frame (the
-    # grouping of flow_base.run_flow_band)
-    if flow_step is not None and len(flow_buf) > 1:
-        n_pairs = len(flow_buf) - 1
-        while len(flow_buf) < win:
-            flow_buf.append(flow_buf[-1])
-        out = run_step(flow_step, np.stack(flow_buf))
-        with prof.stage("prisma.sink"):
-            sinks["flow"].emit(out, n_pairs)
 
     if "mask" in sinks:
         sinks["mask"].close()
@@ -250,5 +369,6 @@ def run_fused(input_path: str, runtime: RuntimeConfig | None = None, *,
         sinks["flow"].close()
     reader.close()
     prof.stop_device_trace()
-    prof.report(items=frames_done)
+    prof.report(items=frames_done,
+                counts={"dispatched": fused.counts})
     return ran

@@ -21,6 +21,13 @@ convolutions as one [K, C] x [C, Hm*Wm] matmul, matrix NMS at [K, K] and a
 [max_per_img] slab with a validity mask. Its top-Ks and sorts are stable,
 as `jax.lax.top_k` and `jnp.argsort` are, so equal scores keep their order
 on every device.
+
+`network` and `forward` open the spans `prisma.model.mask_backbone` (ResNet
+and the FPN), `prisma.model.mask_head` (the mask features, the kernel and
+class branches) and `prisma.model.mask_results` (each frame's get_results:
+point NMS, top-K, the dynamic masks, matrix NMS, the upsample and the
+slab), named apart from the other models' so that a fused step's device
+time falls to each model's own stages.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch import nn
 from prisma_tpu_torch.models import resnet
 from prisma_tpu_torch.ops import nn as pnn
 from prisma_tpu_torch.ops.resize import resize2d_nchw
+from prisma_tpu_torch.runtime.profiling import span
 
 BN_EPS = 1e-5
 
@@ -322,18 +330,21 @@ def get_results(kernel_preds, cls_preds, mask_feats, img_hw, ori_hw,
 
 def network(model: SOLOv2, image: torch.Tensor):
     """image [B, 3, Hp, Wp] normalised + padded -> head_forward's outputs."""
-    feats = resnet.forward(model.backbone, image)
-    return head_forward(model.mask_head, fpn_forward(model.neck, feats),
-                        model.cfg)
+    with span("prisma.model.mask_backbone"):
+        fpn_feats = fpn_forward(model.neck,
+                                resnet.forward(model.backbone, image))
+    with span("prisma.model.mask_head"):
+        return head_forward(model.mask_head, fpn_feats, model.cfg)
 
 
 def forward(model: SOLOv2, image: torch.Tensor, img_hw, ori_hw) -> list:
     """image [B, 3, Hp, Wp] -> one instance slab (see get_results) a frame."""
     kernel_preds, cls_preds, mask_feats = network(model, image)
-    return [get_results([k[b:b + 1] for k in kernel_preds],
-                        [c[b:b + 1] for c in cls_preds], mask_feats[b:b + 1],
-                        img_hw, ori_hw, model.cfg)
-            for b in range(image.shape[0])]
+    with span("prisma.model.mask_results"):
+        return [get_results([k[b:b + 1] for k in kernel_preds],
+                            [c[b:b + 1] for c in cls_preds],
+                            mask_feats[b:b + 1], img_hw, ori_hw, model.cfg)
+                for b in range(image.shape[0])]
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from prisma_tpu_torch.models import depth_anything as da
 from prisma_tpu_torch.models import dpt, vit
 from prisma_tpu_torch.ops import nn as pnn
 from prisma_tpu_torch.ops.resize import resize2d_nchw
+from prisma_tpu_torch.runtime.profiling import span
 
 
 @dataclass(frozen=True)
@@ -277,17 +278,26 @@ def metric_depth_anything_infer(model: MetricDepthAnything,
     The reference pipeline (bands/depth_anything.py:106-119 with the
     DepthAnythingCore): /255, ImageNet normalise, bilinear align_corners
     resize to img_size (multiples of 14), the core with its feature hooks,
-    the bins head in f32, and PIL's antialiased bicubic back to (H, W)."""
+    the bins head in f32, and PIL's antialiased bicubic back to (H, W).
+    Spans: `prisma.model.prepare`, `.encoder` (the ViT), `.head` (DPT), as
+    `depth_anything.infer` names them, then `.bins_head` and
+    `.resize_back`."""
     B, H, W, _ = frames_u8.shape
     h2, w2 = img_size
-    img = prepare(frames_u8, img_size, compute_dtype)
+    with span("prisma.model.prepare"):
+        img = prepare(frames_u8, img_size, compute_dtype)
     core = model.core.core
     patch = core.pretrained.cfg.patch_size
-    feats = vit.get_intermediate_layers(core.pretrained, img, n=4)
-    rel_depth, core_feats = dpt.dpt_head(core.depth_head, feats, h2 // patch,
-                                         w2 // patch, return_features=True)
-    depth = bins_head(model, rel_depth, core_feats)
-    return resize2d_nchw(depth, (H, W), method="cubic_aa")
+    with span("prisma.model.encoder"):
+        feats = vit.get_intermediate_layers(core.pretrained, img, n=4)
+    with span("prisma.model.head"):
+        rel_depth, core_feats = dpt.dpt_head(core.depth_head, feats,
+                                             h2 // patch, w2 // patch,
+                                             return_features=True)
+    with span("prisma.model.bins_head"):
+        depth = bins_head(model, rel_depth, core_feats)
+    with span("prisma.model.resize_back"):
+        return resize2d_nchw(depth, (H, W), method="cubic_aa")
 
 
 def build(vit_cfg: vit.ViTConfig, features: int = 256,

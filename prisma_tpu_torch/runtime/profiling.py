@@ -141,7 +141,11 @@ class StageProfiler:
         trace.export_chrome_trace(path)
         return path
 
-    def report(self, items: int | None = None) -> str:
+    def report(self, items: int | None = None,
+               counts: dict[str, Counter] | None = None) -> str:
+        """Print and return the stages' host totals, the set-up spans, the
+        kernel builds, the host copies and each of `counts` (a name and its
+        Counter, e.g. the fused loop's dispatches), when enabled."""
         if not self.enabled or not self.totals:
             return ""
         lines = ["[prisma_tpu_torch profile]"]
@@ -164,6 +168,8 @@ class StageProfiler:
                          + _counted(build.CACHED))
         if host_copy.COPIES:
             lines.append("  host copies: " + host_copy.summary())
+        for name, counter in (counts or {}).items():
+            lines.append(f"  {name}: " + _counted(counter))
         out = "\n".join(lines)
         print(out)
         return out

@@ -99,6 +99,19 @@ def metric_depth_anything_from_state_dict(sd: dict, cfg: pvit.ViTConfig,
     return model
 
 
+def _metric_encoder(sd: dict) -> str:
+    """The name in VIT_CONFIGS of a metric state_dict's ViT, by its width
+    and its number of blocks."""
+    p = "core.core.pretrained."
+    width = sd[p + "cls_token"].shape[-1]
+    depth = len({k.split(".")[4] for k in sd if k.startswith(p + "blocks.")})
+    for name, cfg in pvit.VIT_CONFIGS.items():
+        if (cfg.embed_dim, cfg.depth) == (width, depth):
+            return name
+    raise ValueError(f"no ViT of width {width} and {depth} blocks in "
+                     f"VIT_CONFIGS ({sorted(pvit.VIT_CONFIGS)})")
+
+
 @timed(SETUP_WEIGHTS)
 def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
                         metric: str = "none"):
@@ -106,7 +119,9 @@ def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
 
     Metric: the ZoeDepth-over-DepthAnythingCore checkpoint
     depth_anything_metric_depth_{metric}.pt (reference depth_anything.py:
-    38-39), always ViT-L; random weights keep the asked encoder."""
+    38-39), whose ViT is the one of VIT_CONFIGS of the file's width and
+    depth (the published files: ViT-L); random weights keep the asked
+    encoder."""
     if metric != "none":
         if runtime.random_weights:
             gen = torch.Generator().manual_seed(RANDOM_SEED)
@@ -119,8 +134,10 @@ def load_depth_anything(runtime: RuntimeConfig, encoder: str = "vitl",
             raise FileNotFoundError(
                 f"checkpoint {path} not found; place the metric checkpoint "
                 "there or set runtime.random_weights=True")
+        sd = _load_torch_state_dict(path)
+        name = _metric_encoder(sd)
         return ("metric", metric_depth_anything_from_state_dict(
-            _load_torch_state_dict(path), pvit.VIT_CONFIGS["vitl"]), "vitl")
+            sd, pvit.VIT_CONFIGS[name]), name)
     cfg = pvit.VIT_CONFIGS[encoder]
     if runtime.random_weights:
         gen = torch.Generator().manual_seed(RANDOM_SEED)
