@@ -104,12 +104,19 @@ non-zero at once.
      with TF32 off on the card against the CPU: the slab on the same head
      outputs (decayed scores within 1e-5), the whole network's slab matched
      instance by instance, the valid count (> 0); the SDF green channel
-     equal on both sides
+     equal on both sides; the mask epilogue's kernels (composite, SDF) on
+     the slab's masks equal to their plain versions
  18. mask: the mask step (SDF on) at 1080p, test scale 1333x750: outputs
-     checked, no kernel launched; frames/s and peak memory
+     checked, one composite and one SDF launch of the mask epilogue a step
+     and no other kernel; frames/s and peak memory; then on the slabs of
+     the 8 frames (SOLOv2 on the card, bf16) the epilogue's kernels equal
+     to their plain versions (torch.equal; the step's keep flags and every
+     valid slot kept), and the kernels, the plain versions and the bytes
+     bound timed
  19. fused: the three steps the fused pipeline dispatches for one batch
      (mask, metric depth, GMFlow over the 8-frame window), launches
-     counted (30 K1, 6 K2, 3 K3, 15 K4 a batch), frames/s
+     counted (30 K1, 6 K2, 3 K3, 15 K4, one composite and one SDF a
+     batch), frames/s
  20. pf-f32, zoed-f32: PatchFusion (BEiT-L at 4 blocks, 64 features) at
      model size 64x96 on a 128x192 image, at p16 and r3, and ZoeD_N (BEiT-L
      at 4 blocks) at img_size 64x96, in f32 with TF32 off on the card
@@ -125,8 +132,9 @@ non-zero at once.
  23. image: an image through process.py's band calls, in memory: rgba (no
      device work), the mask with its SDF, PatchFusion at r128 (177 tiles)
      and the depth PNG's heatmap: s/image, peak memory
-     Phases 20-23 run no kernel of csrc/ (the JAX package has no Pallas
-     kernel there): their launch counts must stay 0.
+     Phases 20-22 run no kernel of csrc/ (the JAX package has no Pallas
+     kernel there): their launch counts must stay 0; phase 23 runs only the
+     mask epilogue's two, once each.
  24. midas-f32: DPT_Large (ViT-L/16, 24 f32 K1) and MiDaS v2.1
      (ResNeXt-101 32x8d, no kernel) at full width on one 1080p frame, in
      f32 with TF32 off on the card against the CPU, within 1e-4 of the
@@ -264,13 +272,20 @@ KERNEL_SYMBOLS = {
     "K4": ("instance_norm_relu_kernel",),
     "K5": ("raft_window_lookup_kernel",),
     "K6a": ("lane_gather_kernel",),
-    "K6b": ("minor_transpose_kernel", "minor_transpose_tiled_kernel")}
+    "K6b": ("minor_transpose_kernel", "minor_transpose_tiled_kernel"),
+    "mask_composite": ("kept_composite_kernel",),
+    "mask_sdf": ("sdf_green_kernel",)}
 DESIGNS = {
     "K1": "wgmma+tma", "K2": "wgmma+tma",  # the bf16 kernels; f32 by FMA
     "K3": "wgmma+tma, two S in flight", "K4": "block-reduction",
     "K5": "cp.async 16-byte row chunks, two buffers of 16-pixel groups",
     "K6a": "taps windows only, spans of whole rows built in shared memory and "
            "stored with one bulk copy, two buffers, persistent grid",
+    "mask_composite": "keep flags in shared memory, 16 pixels a thread, only the "
+                      "kept masks read, packed byte sums, f32 and marked bytes out",
+    "mask_sdf": "tiles of 32x192 with a 66-column halo: column sweeps to capped "
+                "vertical distances, their squares packed in shared memory, a "
+                "133-tap integer minimum a pixel, 16 columns a thread",
     "K6b": "whole slabs in and out by bulk copy, two buffers each way, a "
            "bank-shifted transpose in shared memory, persistent 1-D grid"}
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA", "UBLKCP")
@@ -381,9 +396,9 @@ def kernel_label(mangled):
     """'flash_fwd_bf16<64>' from a mangled kernel symbol of csrc/, or None."""
     for symbols in KERNEL_SYMBOLS.values():
         for sym in symbols:
-            m = re.search(rf"\d{sym}(?:I(.+?)E)?E+v", mangled)
+            m = re.search(rf"\d{sym}(?:I(.+?)E)?E", mangled)
             if m:
-                args = [re.sub(r"^(Li|\d+)", "", a) for a in (m[1] or "").split("E")]
+                args = [re.sub(r"^(Li|Lb|\d+)", "", a) for a in (m[1] or "").split("E")]
                 args = [{"f": "float", "j": "uint32", "t": "uint16",
                          "__nv_bfloat16": "bf16"}.get(a, a)
                         for a in args if a]
@@ -446,6 +461,7 @@ def launch_counters():
     zero_counts, read_counts)."""
     from prisma_tpu_torch.ops.cuda import flash_attention as fa
     from prisma_tpu_torch.ops.cuda import instance_norm as inorm
+    from prisma_tpu_torch.ops.cuda import mask_epilogue as me
     from prisma_tpu_torch.ops.cuda import probe_gather as pg
     from prisma_tpu_torch.ops.cuda import raft_lookup as rl
     counters = {"K1": (fa.flash_attention, "launches"),
@@ -454,7 +470,9 @@ def launch_counters():
                 "K4": (inorm.instance_norm_relu, "launches"),
                 "K5": (rl.window_lookup, "launches"),
                 "K6a": (pg.lane_gather, "launches"),
-                "K6b": (pg.minor_transpose, "launches")}
+                "K6b": (pg.minor_transpose, "launches"),
+                "mask_composite": (me.kept_composite, "launches"),
+                "mask_sdf": (me.sdf_green, "launches")}
 
     def per_path(**n):
         """Expected launches: n for the named kernels, 0 for the others."""
@@ -545,6 +563,7 @@ def main():
     from prisma_tpu_torch.ops.cuda import raft_lookup as rl
     from prisma_tpu_torch.ops.resize import resize2d
     from prisma_tpu_torch.runtime import check_gather, check_lookup, launch_cost
+    from prisma_tpu_torch.runtime import check_mask_epilogue as cme
     from prisma_tpu_torch.runtime.config import RuntimeConfig
     from prisma_tpu_torch.weights import store
     import torch.nn.functional as F
@@ -1490,12 +1509,21 @@ def main():
         f"both sides {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the SDF green channel on the card differs from the CPU's")
-    del cpu_solo, gpu_solo
+    on_card = {k: v.cuda() for k, v in slab_cpu.items()}
+    h = cme.held([on_card["masks"]], [on_card["valid"]])
+    ok = h["composite"] and h["marked"] and h["green"] and h["launches"] == (1, 1)
+    say("mask-f32", f"the epilogue's kernels on the slab's masks, the valid "
+        f"instances kept: composite, marked pixels and green equal to the plain "
+        f"versions on the card: {h} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the mask epilogue's kernels differ from their plain versions")
+    del cpu_solo, gpu_solo, on_card
 
     # 18. the mask path at full width (process.py runs it with the SDF)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mask_step = mask_band.build_step(runtime, FRAME_HW,
+    mask_model = mask_band.load_model(runtime)
+    mask_step = mask_band._make_step(mask_model, FRAME_HW,
                                      mask_band.CONFIDENCE_THRESHOLD, sdf=True)
     mask_step(frames)  # warm-up
     mh, mw = solov2.test_scale(*FRAME_HW)
@@ -1516,18 +1544,45 @@ def main():
         if not (np.isfinite(green).all() and green.min() >= 0
                 and green.max() <= 1 and (comp % 255 == 0).all()):
             fail("mask green outside [0, 1] or composite not a sum of 255s")
-    if mask_counts != per_path():
-        fail(f"the mask step launched a kernel: {mask_counts}")
+    if mask_counts != per_path(mask_composite=TIMED_STEPS, mask_sdf=TIMED_STEPS):
+        fail(f"the mask step's launches: {mask_counts}, expected one composite "
+             f"and one SDF a step")
     mask_ms = elapsed / TIMED_STEPS * 1e3
     say("mask", f"{TIMED_STEPS} steps: composite {list(outs[0]['composite'].shape)}"
         f" (kept pixels {float((outs[0]['composite'] > 0).mean()):.3f}), green "
-        f"in [0, 1]; no kernel of csrc/ on this path (plain torch, as the JAX "
-        f"package has no Pallas kernel here) ok")
+        f"in [0, 1]; launches {mask_counts} (the mask epilogue's kernels, no "
+        f"other of csrc/) ok")
     say("mask", f"{BATCH * TIMED_STEPS / elapsed:.2f} frames/s ({mask_ms:.1f} "
         f"ms per batch-8 step, host clock, H2D and D2H included; "
         f"mask_solov2_sdf_1080p_fps_per_chip); peak memory {peak:.2f} GiB; "
         f"on {card}")
     del outs
+    # the epilogue's kernels on the real slabs of the 8 frames
+    with torch.inference_mode():
+        x = torch.from_numpy(frames).cuda()
+        img, img_hw = solov2.preprocess(x, dtype=runtime.resolve_dtype(),
+                                        scale=mask_model.cfg.scale)
+        slabs = solov2.forward(mask_model, img, img_hw, FRAME_HW)
+    ids = torch.tensor(mask_band.CLASS_IDS, device="cuda")
+    slab_masks = [o["masks"] for o in slabs]
+    step_keep = [mask_band.kept(o, mask_band.CONFIDENCE_THRESHOLD, ids)
+                 for o in slabs]
+    for what, keep in (("the step's keep flags", step_keep),
+                       ("every valid slot kept", [o["valid"] for o in slabs])):
+        h = cme.held(slab_masks, keep)
+        ok = h["composite"] and h["marked"] and h["green"] and h["launches"] == (1, 1)
+        say("mask", f"epilogue kernels on the {BATCH} frames' slabs "
+            f"({list(slab_masks[0].shape)} a frame), {what} "
+            f"({sum(int(k.sum()) for k in keep)} instances): composite, marked "
+            f"pixels and green equal to the plain versions: {h} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the mask epilogue's kernels differ from their plain versions "
+                 "on the real slabs")
+    mask_epi = cme.timed(slab_masks, step_keep)
+    say("mask", cme.describe(f"epilogue at {BATCH} x {list(slab_masks[0].shape)}, "
+                             "the step's keep flags", mask_epi) + f"; on {card}")
+    del slabs, slab_masks, step_keep, x, img, mask_model
 
     # 19. the fused default run: the three steps run_fused dispatches for one
     # batch (built by multiband.build_steps with process.py's default
@@ -1551,7 +1606,8 @@ def main():
     outs = [fused_batch() for _ in range(FUSED_STEPS)]
     elapsed = time.perf_counter() - t0
     fused_counts = read_counts()
-    fused_expect = {"K1": 24 + 6, "K2": 6, "K3": 3, "K4": 15}
+    fused_expect = {"K1": 24 + 6, "K2": 6, "K3": 3, "K4": 15,
+                    "mask_composite": 1, "mask_sdf": 1}
     if fused_counts != per_path(**{k: n * FUSED_STEPS
                                    for k, n in fused_expect.items()}):
         fail(f"fused launches in {FUSED_STEPS} batches: {fused_counts}, "
@@ -1609,7 +1665,15 @@ def main():
             ("lane_gather", "K6a", "probe_gather.cu",
              "scripts/probe_gather_kernel.py:31", k6a),
             ("minor_transpose", "K6b", "probe_gather.cu",
-             "scripts/probe_gather_kernel.py:53", k6b)]
+             "scripts/probe_gather_kernel.py:53", k6b),
+            ("kept_composite", "mask_composite", "mask_epilogue.cu",
+             "none: prisma_tpu/ops/sdf.py and bands/mask_band.py are jnp ops",
+             {k: mask_epi[k] for k in ("composite_ms", "composite_bound_ms",
+                                       "plain_composite_ms", "kept_instances")}),
+            ("sdf_green", "mask_sdf", "mask_epilogue.cu",
+             "none: prisma_tpu/ops/sdf.py is jnp ops",
+             {k: mask_epi[k] for k in ("sdf_ms", "sdf_bound_ms", "plain_sdf_ms",
+                                       "kernels_ms", "bound_ms", "plain_ms")})]
 
     def compiled(key, table):
         return {label: v for label, v in table.items()
@@ -1657,7 +1721,8 @@ def synced(fn):
 
 def beit_paths(runtime, frames, card, rng, zero_counts, read_counts, per_path):
     """Phases 20-23: the BEiT-L depth family and an image's process run.
-    -> {path: launch counts} (no kernel of csrc/ runs on these paths)."""
+    -> {path: launch counts} (no kernel of csrc/ runs on these paths but
+    the mask epilogue's in the image's run)."""
     import functools
 
     from prisma_tpu_torch.bands import (depth_base, depth_patchfusion_band,
@@ -1668,10 +1733,12 @@ def beit_paths(runtime, frames, card, rng, zero_counts, read_counts, per_path):
 
     counts = {}
 
-    def no_kernel(phase, key):
+    def no_kernel(phase, key, **allowed):
+        """No kernel of csrc/ launched but the `allowed` counts."""
         counts[key] = read_counts()
-        if counts[key] != per_path():
-            fail(f"{phase}: a kernel of csrc/ launched: {counts[key]}")
+        if counts[key] != per_path(**allowed):
+            fail(f"{phase}: kernels of csrc/ launched: {counts[key]}, expected "
+                 f"{allowed or 'none'}")
 
     # 20. PatchFusion and ZoeD_N in f32 on the card (TF32 off) against the CPU
     cfg = beit.BEiTConfig(depth=4)
@@ -1815,7 +1882,7 @@ def beit_paths(runtime, frames, card, rng, zero_counts, read_counts, per_path):
         heat, _, _ = enc.depth_to_heatmap(depth[0], normalize=True, flip=False,
                                           encode_range=False)
     total = time.perf_counter() - t0
-    no_kernel("image", "image_r128")
+    no_kernel("image", "image_r128", mask_composite=1, mask_sdf=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if mout["composite"].shape != (1, *FRAME_HW) or heat.shape != (*FRAME_HW, 3):
         fail(f"image outputs: mask {mout['composite'].shape}, heat "
@@ -1825,8 +1892,8 @@ def beit_paths(runtime, frames, card, rng, zero_counts, read_counts, per_path):
         f"{float((mout['composite'] > 0).mean()):.3f}), PatchFusion r128 (4 "
         f"grid passes + 128 random tiles in passes of 8 = 177 tiles): "
         f"{sec:.3f} s an image for the depth, {total:.3f} s for the three "
-        f"bands; heat {list(heat.shape)} {heat.dtype}; no kernel of csrc/; "
-        f"peak memory {peak:.2f} GiB; on {card}")
+        f"bands; heat {list(heat.shape)} {heat.dtype}; of csrc/ only the mask "
+        f"epilogue's two kernels; peak memory {peak:.2f} GiB; on {card}")
     del model, mstep
     torch.cuda.empty_cache()
     return counts

@@ -9,7 +9,9 @@ COLMAP masking, and register band "mask" with the kept class list in metadata
 (mask_mmdet.py:84-102,131-161).
 
 The step moves a uint8 batch to the model's device, runs the network on the
-whole batch, the slab and composite per frame and the SDF there, eagerly,
+whole batch and the slab per frame, then the kept instances' composite and
+the SDF over the batch (the kernels of `ops/cuda/mask_epilogue.py` on a
+card, their plain versions in `ops/sdf.py` on the CPU), eagerly,
 and returns host numpy (both copies through `runtime.host_copy`: pinned on
 a card); the host epilogue below is the JAX package's. The step opens the
 spans of `runtime.profiling` as the depth and flow steps do: `prisma.step`
@@ -28,7 +30,7 @@ from prisma_tpu_torch.bands.base import BandIO, resolve
 from prisma_tpu_torch.io.image import open_rgb, write_rgb_u8
 from prisma_tpu_torch.io.video import VideoReader, VideoWriter
 from prisma_tpu_torch.models import solov2
-from prisma_tpu_torch.ops.sdf import sdf_green_device
+from prisma_tpu_torch.ops.cuda import mask_epilogue
 from prisma_tpu_torch.parallel import mesh
 from prisma_tpu_torch.runtime import host_copy
 from prisma_tpu_torch.runtime.config import RuntimeConfig
@@ -44,6 +46,13 @@ CLASS_IDS = (0, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23)
 CONFIDENCE_THRESHOLD = 0.5
 
 
+def kept(slab: dict, confidence: float, class_ids: torch.Tensor) -> torch.Tensor:
+    """The reference's keep flags [N] of one frame's slab: valid, over the
+    confidence, of a kept class (class_ids: CLASS_IDS on the slab's device)."""
+    return (slab["valid"] & (slab["scores"] > confidence)
+            & (slab["labels"][:, None] == class_ids[None]).any(dim=1))
+
+
 def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
                devices=None):
     """The mask step on the model's device and in its dtype: uint8 frames
@@ -56,6 +65,7 @@ def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
     dropped."""
     dtype, cfg = next(model.parameters()).dtype, model.cfg
     replicas = mesh.replicate(model, devices) if devices else None
+    class_ids = {}  # device -> CLASS_IDS there, copied once (a copy waits)
 
     def run(m: solov2.SOLOv2, frames_u8: torch.Tensor) -> dict:
         device = next(m.parameters()).device
@@ -65,20 +75,14 @@ def _make_step(model: solov2.SOLOv2, ori_hw, confidence: float, sdf: bool,
             img, img_hw = solov2.preprocess(x, dtype=dtype, scale=cfg.scale)
             slabs = solov2.forward(m, img, img_hw, ori_hw)
         with span("prisma.step.epilogue"):
-            class_ids = torch.tensor(CLASS_IDS, device=device)
-            composite = []
-            for out in slabs:
-                keep = (out["valid"] & (out["scores"] > confidence)
-                        & (out["labels"][:, None]
-                           == class_ids[None]).any(dim=1))
-                # the reference sums 255-white masks in float, then casts to
-                # uint8 (which wraps)
-                composite.append(((out["masks"] & keep[:, None, None])
-                                  .float() * 255.0).sum(dim=0))
-            composite = torch.stack(composite)
+            if device not in class_ids:
+                class_ids[device] = torch.tensor(CLASS_IDS, device=device)
+            keep = [kept(out, confidence, class_ids[device]) for out in slabs]
+            composite, marked = mask_epilogue.kept_composite(
+                [out["masks"] for out in slabs], keep)
             res = {"composite": composite}
             if sdf:
-                res["green"] = sdf_green_device(composite != 0.0)
+                res["green"] = mask_epilogue.sdf_green(marked)
         return res
 
     @torch.inference_mode()

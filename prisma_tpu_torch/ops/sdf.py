@@ -1,5 +1,7 @@
-"""Signed distance field for the mask band's green channel, on the model's
-device (counterpart of prisma_tpu/ops/sdf.py).
+"""The mask band's epilogue on the model's device: the kept instances'
+composite and the signed distance field of its green channel (counterpart
+of prisma_tpu/ops/sdf.py). These are the plain versions of the CUDA kernels
+of `ops/cuda/mask_epilogue.py`, which the band step calls.
 
 Reference: the snowy-based SDF of `bands/mask_mmdet.py:64-69`:
 ``sdf = generate_sdf(mask != 0); sdf = (sdf + 127) / 255;
@@ -26,6 +28,13 @@ import torch.nn.functional as F
 # every contributing distance exact
 CAP = 66
 _POW2 = (64, 32, 16, 8, 4, 2, 1)
+
+
+def kept_composite(masks: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """One frame's composite: masks [N, H, W] bool, keep [N] bool -> [H, W]
+    f32, the kept masks summed as 255-white. The reference sums 255-white
+    masks in float, then casts to uint8 (which wraps)."""
+    return ((masks & keep[:, None, None]).float() * 255.0).sum(dim=0)
 
 
 def _dist1d_vertical(seed: torch.Tensor) -> torch.Tensor:

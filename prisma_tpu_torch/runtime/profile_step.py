@@ -161,7 +161,7 @@ def mask_step(runtime: RuntimeConfig, frames: np.ndarray):
     mask band's step with the SDF, as process.py runs it."""
     from prisma_tpu_torch.bands import mask_band
     from prisma_tpu_torch.models import resnet, solov2
-    from prisma_tpu_torch.ops.sdf import sdf_green_device
+    from prisma_tpu_torch.ops.cuda import mask_epilogue
 
     H, W = frames.shape[1:3]
     model = mask_band.load_model(runtime)
@@ -183,7 +183,12 @@ def mask_step(runtime: RuntimeConfig, frames: np.ndarray):
                                        mask_feats[b:b + 1], hw, (H, W), cfg)
                     for b in range(x.shape[0])]
 
-        comp = torch.stack([o["masks"].any(dim=0) for o in slabs()])
+        ids = torch.tensor(mask_band.CLASS_IDS, device=x.device)
+        out = slabs()
+        masks = [o["masks"] for o in out]
+        keep = [mask_band.kept(o, mask_band.CONFIDENCE_THRESHOLD, ids)
+                for o in out]
+        marked = mask_epilogue.kept_composite(masks, keep)[1]
         stages = {
             "preprocess (resize, normalize, pad)": cuda_ms(
                 lambda: solov2.preprocess(x, dtype=dtype, scale=cfg.scale)),
@@ -193,7 +198,10 @@ def mask_step(runtime: RuntimeConfig, frames: np.ndarray):
                 lambda: solov2.head_forward(model.mask_head, fpn, cfg)),
             f"{x.shape[0]} slabs (top-K, dynamic convs, matrix NMS, "
             "upsample to 1080p)": cuda_ms(slabs, 3),
-            "SDF green channel": cuda_ms(lambda: sdf_green_device(comp), 3),
+            "kept composite": cuda_ms(
+                lambda: mask_epilogue.kept_composite(masks, keep)),
+            "SDF green channel": cuda_ms(
+                lambda: mask_epilogue.sdf_green(marked)),
         }
     return step, stages
 
